@@ -1,0 +1,210 @@
+"""ServableCircuit: the deployable inference artifact, and its bundles.
+
+A `ServableCircuit` is a fitted genome plus everything needed to run it on
+raw float features (fitted encoder, class count).  Bundles use the
+reference package's on-disk format unchanged — one ``.npz`` holding the
+genome/encoder arrays and a JSON metadata string, format version 2 — so a
+bundle saved by either package loads in the other and predicts the same
+class ids.  `servable_from_arrays` builds an artifact from those arrays
+directly; `load_servable` is built on it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+from repro_torch import runtime
+from repro_torch.core import encoding as E
+from repro_torch.core.genome import CircuitSpec, Genome, opcodes
+
+# On-disk bundle format (the reference's).  Version history:
+#   1 — genome + spec + encoder + class count + validated backend.
+#   2 — adds optional lineage metadata and the fit-time per-bit activation
+#       frequencies (``enc_ref_stats``).
+SERVABLE_FORMAT_VERSION = 2
+_SERVABLE_READABLE_VERSIONS = (1, 2)
+SERVABLE_FORMAT_KIND = "tiny-classifier-circuits/servable-circuit"
+
+
+def read_servable_meta(path: str) -> dict:
+    """Read just the JSON metadata of a saved bundle."""
+    with np.load(path, allow_pickle=False) as z:
+        return json.loads(str(z["meta"]))
+
+
+def decode_predictions(out_words, n_rows: int, n_classes: int) -> np.ndarray:
+    """Packed circuit output words → int64 class ids, length exactly n_rows.
+
+    Runs on the host in numpy ``uint32`` (``int32`` words are viewed as
+    ``uint32`` first, so ``>>`` is a logical shift).  The row axis is padded
+    up to a word boundary, so the decode trims to the true row count; an
+    out-of-range binary code maps to the last class."""
+    words = np.asarray(out_words)
+    if words.dtype == np.int32:
+        words = words.view(np.uint32)                   # u32[O, W]
+    shifts = np.arange(E.WORD, dtype=np.uint32)
+    bits = (words[..., None] >> shifts) & np.uint32(1)  # (O, W, 32)
+    bits = bits.reshape(words.shape[0], -1)[:, :n_rows].astype(np.int64)
+    weights = (np.int64(1) << np.arange(words.shape[0], dtype=np.int64))
+    ids = (bits * weights[:, None]).sum(axis=0)
+    return np.minimum(ids, n_classes - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServableCircuit:
+    """Deployable inference artifact of a fitted classifier.
+
+    ``lineage`` (JSON metadata) and ``ref_stats`` (fit-time per-bit
+    activation frequencies) ride along from format-v2 bundles and are
+    excluded from equality."""
+
+    spec: CircuitSpec
+    genome: Genome
+    encoder: E.Encoder
+    n_classes: int
+    lineage: "dict | None" = dataclasses.field(default=None, compare=False)
+    ref_stats: "np.ndarray | None" = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
+
+    def __post_init__(self):
+        if self.spec.n_inputs != self.encoder.n_bits_total:
+            raise ValueError(
+                f"spec has {self.spec.n_inputs} inputs, the encoder makes "
+                f"{self.encoder.n_bits_total} bits"
+            )
+        if self.n_classes < 2:
+            raise ValueError(f"n_classes must be >= 2, got {self.n_classes}")
+        if self.ref_stats is not None and (
+                np.shape(self.ref_stats) != (self.encoder.n_bits_total,)):
+            raise ValueError(
+                f"ref_stats shape {np.shape(self.ref_stats)} != "
+                f"({self.encoder.n_bits_total},)"
+            )
+
+    @property
+    def n_inputs(self) -> int:
+        return self.spec.n_inputs
+
+    @property
+    def n_outputs(self) -> int:
+        return self.spec.n_outputs
+
+    def predict(
+        self, x: np.ndarray, *, device: "str | torch.device | None" = None,
+    ) -> np.ndarray:
+        """Class ids for float rows ``x`` (the serving engine matches this
+        bit for bit).  ``device=None`` runs on the card through the CUDA
+        kernel and raises without one; ``device="cpu"`` runs the plain
+        version."""
+        dev = runtime.resolve_device(device)
+        be = runtime.backend_for(dev)
+        bits = E.encode(self.encoder, np.asarray(x, np.float32))
+        r = bits.shape[0]
+        x_words = E.pack_bits_rows(bits, E.n_words(r))
+        out = be.eval_circuit(
+            opcodes(self.genome, self.spec).to(dev),
+            self.genome.edge_src.to(dev),
+            self.genome.out_src.to(dev),
+            torch.from_numpy(x_words.view(np.int32)).to(dev),
+        )
+        return decode_predictions(out.cpu().numpy(), r, self.n_classes)
+
+
+def servable_from_arrays(
+    arrays: "dict[str, np.ndarray]", meta: dict
+) -> ServableCircuit:
+    """Build a `ServableCircuit` from a bundle's arrays and metadata.
+
+    ``arrays`` holds the bundle's own keys — ``gate_fn``, ``edge_src``,
+    ``out_src``, ``enc_thresholds``, ``enc_codes`` and optionally
+    ``enc_ref_stats`` — and ``meta`` its JSON metadata (``spec``,
+    ``encoder``, ``n_classes``, optional ``lineage``)."""
+    spec = CircuitSpec(
+        n_inputs=int(meta["spec"]["n_inputs"]),
+        n_nodes=int(meta["spec"]["n_nodes"]),
+        n_outputs=int(meta["spec"]["n_outputs"]),
+        fn_set=tuple(int(op) for op in meta["spec"]["fn_set"]),
+    )
+
+    def i32(key: str) -> torch.Tensor:
+        return torch.from_numpy(np.array(arrays[key], dtype=np.int32))
+
+    genome = Genome(
+        gate_fn=i32("gate_fn"), edge_src=i32("edge_src"), out_src=i32("out_src")
+    )
+    encoder = E.Encoder(
+        thresholds=np.asarray(arrays["enc_thresholds"], np.float32),
+        codes=np.asarray(arrays["enc_codes"], np.uint8),
+        strategy=meta["encoder"]["strategy"],
+        bits=int(meta["encoder"]["bits"]),
+    )
+    ref_stats = arrays.get("enc_ref_stats")
+    return ServableCircuit(
+        spec=spec, genome=genome, encoder=encoder,
+        n_classes=int(meta["n_classes"]),
+        lineage=meta.get("lineage"),
+        ref_stats=None if ref_stats is None else np.asarray(ref_stats, np.float32),
+    )
+
+
+def save_servable(
+    circuit: ServableCircuit, path: str, *,
+    validated_backend: "str | runtime.EvalBackend" = "torch-ref",
+) -> str:
+    """Write a `ServableCircuit` as a versioned npz+JSON bundle (the
+    reference's format).  Returns the path written (``.npz`` appended when
+    missing)."""
+    meta = {
+        "kind": SERVABLE_FORMAT_KIND,
+        "format_version": SERVABLE_FORMAT_VERSION,
+        "spec": {
+            "n_inputs": int(circuit.spec.n_inputs),
+            "n_nodes": int(circuit.spec.n_nodes),
+            "n_outputs": int(circuit.spec.n_outputs),
+            "fn_set": [int(op) for op in circuit.spec.fn_set],
+        },
+        "encoder": {
+            "strategy": circuit.encoder.strategy,
+            "bits": int(circuit.encoder.bits),
+        },
+        "n_classes": int(circuit.n_classes),
+        "validated_backend": runtime.resolve_backend(validated_backend).name,
+        "lineage": circuit.lineage,
+    }
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    arrays = {
+        "gate_fn": circuit.genome.gate_fn.cpu().numpy().astype(np.int32),
+        "edge_src": circuit.genome.edge_src.cpu().numpy().astype(np.int32),
+        "out_src": circuit.genome.out_src.cpu().numpy().astype(np.int32),
+        "enc_thresholds": np.asarray(circuit.encoder.thresholds, np.float32),
+        "enc_codes": np.asarray(circuit.encoder.codes, np.uint8),
+    }
+    if circuit.ref_stats is not None:
+        arrays["enc_ref_stats"] = np.asarray(circuit.ref_stats, np.float32)
+    np.savez(path, meta=json.dumps(meta), **arrays)
+    return path
+
+
+def load_servable(path: str) -> ServableCircuit:
+    """Load a bundle written by either package's `save_servable`."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        if meta.get("kind") != SERVABLE_FORMAT_KIND:
+            raise ValueError(
+                f"{path}: not a ServableCircuit bundle "
+                f"(kind={meta.get('kind')!r})"
+            )
+        version = meta.get("format_version")
+        if version not in _SERVABLE_READABLE_VERSIONS:
+            raise ValueError(
+                f"{path}: unsupported bundle format version {version!r} "
+                f"(this build reads versions "
+                f"{list(_SERVABLE_READABLE_VERSIONS)})"
+            )
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+    return servable_from_arrays(arrays, meta)

@@ -1,0 +1,2 @@
+"""Circuit evaluation: hand-written CUDA kernels (`circuit_eval`), their
+plain PyTorch versions (`ref`), and device-dispatching wrappers (`ops`)."""

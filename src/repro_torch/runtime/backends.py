@@ -1,0 +1,65 @@
+"""The port's execution backends: the plain PyTorch versions and the
+hand-written CUDA kernels."""
+from __future__ import annotations
+
+from repro_torch.kernels import circuit_eval, ref
+from repro_torch.runtime.base import BackendCapabilities, EvalBackend
+
+
+class TorchRefBackend(EvalBackend):
+    """Plain PyTorch versions (`kernels/ref.py`): the oracle the kernels
+    are held to, and the backend of every entry point called with
+    ``device="cpu"``."""
+
+    name = "torch-ref"
+
+    def capabilities(self) -> BackendCapabilities:
+        return BackendCapabilities(
+            name=self.name,
+            device_kinds=("cpu", "cuda"),
+            supports_spans=True,
+            word_alignment=1,
+            span_offset_contract="none",
+        )
+
+    def eval_population(self, opcodes, edge_src, out_src, x_words):
+        return ref.eval_population_packed(opcodes, edge_src, out_src, x_words)
+
+    def eval_population_spans(
+        self, opcodes, edge_src, out_src, x_words, word_off, in_width,
+        *, span_words: int,
+    ):
+        return ref.eval_population_spans_packed(
+            opcodes, edge_src, out_src, x_words, word_off, in_width,
+            span_words=span_words,
+        )
+
+
+class CudaBackend(EvalBackend):
+    """The hand-written Hopper kernels (`kernels/circuit_eval.py`).  CUDA
+    tensors only: a CPU tensor, a failed build or a refused launch raises.
+    Any word offset is evaluated as the plain version evaluates it, so
+    spans need no alignment."""
+
+    name = "cuda"
+
+    def capabilities(self) -> BackendCapabilities:
+        return BackendCapabilities(
+            name=self.name,
+            device_kinds=("cuda",),
+            supports_spans=True,
+            word_alignment=1,
+            span_offset_contract="none",
+        )
+
+    def eval_population(self, opcodes, edge_src, out_src, x_words):
+        return circuit_eval.eval_population(opcodes, edge_src, out_src, x_words)
+
+    def eval_population_spans(
+        self, opcodes, edge_src, out_src, x_words, word_off, in_width,
+        *, span_words: int,
+    ):
+        return circuit_eval.eval_population_spans(
+            opcodes, edge_src, out_src, x_words, word_off, in_width,
+            span_words=span_words,
+        )

@@ -1,0 +1,25 @@
+"""Multi-tenant circuit serving: catalog → compiled plans → fused launches.
+
+Many fitted tiny classifiers (tenants — optionally k-member voting
+ensembles) share one `eval_population_spans` launch per plan shard per
+serving tick.  See `registry` (the catalog: hot add/remove, ensembles,
+QoS), `repro_torch.serve.planning` (PlacementPolicy → PlanCompiler →
+LaunchPlan shards), `server` (the micro-batching engine) and `metrics`
+(QPS / latency / occupancy reports).
+"""
+from repro_torch.serve.circuits.metrics import ServerStats, TickReport
+from repro_torch.serve.circuits.registry import (
+    DEFAULT_QOS,
+    CircuitRegistry,
+    TenantQoS,
+)
+from repro_torch.serve.circuits.server import CircuitServer
+
+__all__ = [
+    "DEFAULT_QOS",
+    "CircuitRegistry",
+    "CircuitServer",
+    "ServerStats",
+    "TenantQoS",
+    "TickReport",
+]

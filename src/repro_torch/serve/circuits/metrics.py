@@ -1,0 +1,229 @@
+"""Throughput / latency accounting for the circuit serving engine.
+
+Every `CircuitServer.tick()` reports one `TickReport`; `ServerStats`
+accumulates them into the numbers an operator actually watches: QPS,
+rows/s, p50/p99 tick latency, and kernel occupancy (the fraction of
+row-lanes in the fused launch that carried real requests rather than
+word-boundary or span padding).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import threading
+import time
+from typing import Callable
+
+import numpy as np
+
+# samples kept per percentile window — long-running servers must not grow
+# memory per request/poll; report() percentiles cover the trailing window
+STATS_WINDOW = 8192
+_window = functools.partial(collections.deque, maxlen=STATS_WINDOW)
+
+# tick phases charged to the host CPU vs the device path.  encode/pack/
+# decode are numpy on the host; device_put is the host→device copy, launch
+# the kernel enqueue, readback the wait for the device and the copy back.
+HOST_PHASES = ("encode", "pack", "decode")
+DEVICE_PHASES = ("device_put", "launch", "readback")
+TICK_PHASES = HOST_PHASES[:2] + DEVICE_PHASES + HOST_PHASES[2:]
+
+
+@dataclasses.dataclass(frozen=True)
+class TickReport:
+    """What one micro-batch tick did."""
+
+    generation: int        # registry generation served
+    tenants: int           # logical tenants with pending rows this tick
+    requests: int          # requests completed
+    rows: int              # feature rows predicted
+    launches: int          # fused kernel launches (one per shard
+    #                        with work; 0 on an empty tick)
+    span_words: int        # words per slot span (max across shards)
+    latency_s: float       # wall-clock tick duration
+    occupancy: float       # rows / (padded slots * span_words * 32)
+    plan_shards: int = 1   # shards in the compiled plan this tick ran
+    max_slots_per_launch: int = 0  # busiest single shard launch (slots)
+    # per-launch (shard, slot-rows, padded bit-lanes) — slot-rows counts
+    # each ensemble member's rows once per slot it occupies, i.e. the
+    # lanes that actually carried data in that shard's launch
+    shard_stats: tuple = ()
+    tenant_rows: tuple = ()  # per-tenant (name, rows) served this tick
+    # wall time per tick phase, seconds: encode / pack / device_put /
+    # launch / readback / decode (see TICK_PHASES) — the breakdown behind
+    # the host-vs-kernel share in ServerStats.report()
+    phase_s: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def empty(self) -> bool:
+        return self.rows == 0
+
+    @property
+    def host_s(self) -> float:
+        """Host-CPU time this tick (encode + pack + decode)."""
+        return sum(self.phase_s.get(p, 0.0) for p in HOST_PHASES)
+
+    @property
+    def device_s(self) -> float:
+        """Device-path time this tick (device_put + launch + readback)."""
+        return sum(self.phase_s.get(p, 0.0) for p in DEVICE_PHASES)
+
+
+@dataclasses.dataclass
+class ServerStats:
+    """Running aggregate over ticks (host-side, cheap).
+
+    ``backend`` is the resolved execution-backend name the server
+    dispatches through, so reports stay comparable across backends.
+    ``clock`` is injectable so the timestamped QPS window is
+    fake-clock-testable.
+
+    Thread-safety: ticks are recorded by whichever thread drives the
+    server while ``report()`` is read from other threads — both sides
+    take the internal lock, so a percentile pass can never iterate a
+    deque mid-append."""
+
+    backend: str = "torch-ref"
+    clock: Callable[[], float] = time.perf_counter
+    started_at: float | None = None
+    ticks: int = 0
+    empty_ticks: int = 0
+    launches: int = 0
+    requests: int = 0
+    rows: int = 0
+    tick_latencies_s: collections.deque = dataclasses.field(
+        default_factory=_window
+    )
+    occupancies: collections.deque = dataclasses.field(
+        default_factory=_window
+    )
+    max_tenants_per_launch: int = 0
+    plan_shards: int = 1
+    # cumulative per-shard lane accounting and per-tenant rows served
+    shard_rows: dict = dataclasses.field(default_factory=dict)
+    shard_cells: dict = dataclasses.field(default_factory=dict)
+    tenant_rows: dict = dataclasses.field(default_factory=dict)
+    # (timestamp, cumulative requests) marks — the trailing-window QPS
+    # basis.  Lifetime QPS divides by elapsed-since-construction, which
+    # understates throughput after any idle period; the window covers
+    # only the last STATS_WINDOW ticks of actual serving.
+    request_marks: collections.deque = dataclasses.field(
+        default_factory=_window
+    )
+    # cumulative seconds per tick phase (see TICK_PHASES)
+    phase_totals: dict = dataclasses.field(default_factory=dict)
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False
+    )
+
+    def __post_init__(self) -> None:
+        if self.started_at is None:
+            self.started_at = self.clock()
+
+    def record(self, report: TickReport) -> None:
+        with self._lock:
+            self.ticks += 1
+            self.plan_shards = max(self.plan_shards, report.plan_shards)
+            # Requests count even on launch-free ticks: zero-row
+            # submissions and requests failed by a hot remove still
+            # complete this tick.
+            self.requests += report.requests
+            self.request_marks.append((self.clock(), self.requests))
+            if report.empty:
+                self.empty_ticks += 1
+                return
+            self.launches += report.launches
+            self.rows += report.rows
+            self.tick_latencies_s.append(report.latency_s)
+            self.occupancies.append(report.occupancy)
+            for phase, s in report.phase_s.items():
+                self.phase_totals[phase] = (
+                    self.phase_totals.get(phase, 0.0) + s
+                )
+            for shard, rows, cells in report.shard_stats:
+                self.shard_rows[shard] = self.shard_rows.get(shard, 0) + rows
+                self.shard_cells[shard] = (
+                    self.shard_cells.get(shard, 0) + cells
+                )
+            for tenant, rows in report.tenant_rows:
+                self.tenant_rows[tenant] = (
+                    self.tenant_rows.get(tenant, 0) + rows
+                )
+            # per *launch*, not per tick: a sharded tick's busiest single
+            # launch (falls back to the tick's tenant count for reports
+            # that predate the field)
+            self.max_tenants_per_launch = max(
+                self.max_tenants_per_launch,
+                report.max_slots_per_launch or report.tenants,
+            )
+
+    def phase_breakdown(self) -> dict:
+        """Per-phase tick cost: mean ms per non-empty tick, each phase's
+        share of total phase time, and the host-vs-device split.  Callers
+        must hold the lock or tolerate a racing tick."""
+        total = sum(self.phase_totals.values())
+        nonempty = max(self.ticks - self.empty_ticks, 1)
+        host = sum(self.phase_totals.get(p, 0.0) for p in HOST_PHASES)
+        return {
+            "per_tick_ms": {
+                p: round(self.phase_totals.get(p, 0.0) / nonempty * 1e3, 4)
+                for p in TICK_PHASES
+            },
+            "share": {
+                p: round(self.phase_totals.get(p, 0.0) / max(total, 1e-12), 4)
+                for p in TICK_PHASES
+            },
+            "host_share": round(host / max(total, 1e-12), 4),
+            "kernel_share": round((total - host) / max(total, 1e-12), 4),
+        }
+
+    def report(self) -> dict:
+        # snapshot every mutable container under the lock, then compute
+        # percentiles on the copies — a tick recorded mid-report cannot
+        # mutate a deque we are iterating
+        with self._lock:
+            elapsed = self.clock() - self.started_at
+            lat = list(self.tick_latencies_s)
+            occ = list(self.occupancies)
+            marks = list(self.request_marks)
+            shard_rows = dict(self.shard_rows)
+            shard_cells = dict(self.shard_cells)
+            phases = self.phase_breakdown()
+        lat = np.asarray(lat or [0.0])
+        occ = np.asarray(occ or [0.0])
+        if len(marks) >= 2 and marks[-1][0] > marks[0][0]:
+            qps_window = ((marks[-1][1] - marks[0][1])
+                          / (marks[-1][0] - marks[0][0]))
+            window_s = marks[-1][0] - marks[0][0]
+        else:  # too few ticks for a window — fall back to lifetime
+            qps_window = self.requests / max(elapsed, 1e-9)
+            window_s = elapsed
+        return {
+            "backend": self.backend,
+            "ticks": self.ticks,
+            "empty_ticks": self.empty_ticks,
+            "launches": self.launches,
+            "requests": self.requests,
+            "rows": self.rows,
+            "qps": round(self.requests / max(elapsed, 1e-9), 1),
+            # trailing-window QPS over the last STATS_WINDOW ticks of
+            # actual serving: unlike lifetime `qps`, idle time before the
+            # window does not dilute it
+            "qps_window": round(qps_window, 1),
+            "window_s": round(window_s, 3),
+            "rows_per_s": round(self.rows / max(elapsed, 1e-9), 1),
+            "p50_tick_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
+            "p99_tick_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
+            "mean_occupancy": round(float(occ.mean()), 4),
+            "phase_breakdown": phases,
+            "max_tenants_per_launch": self.max_tenants_per_launch,
+            "plan_shards": self.plan_shards,
+            "shard_occupancy": {
+                str(s): round(
+                    shard_rows.get(s, 0)
+                    / max(shard_cells.get(s, 1), 1), 4,
+                )
+                for s in sorted(shard_cells)
+            },
+        }

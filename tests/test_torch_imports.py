@@ -1,0 +1,83 @@
+"""The PyTorch port stands alone: no JAX, nothing of the reference package."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+# `import jax`, `from jax…`, `import repro`, `from repro.…` — but never
+# the port's own `repro_torch`
+FORBIDDEN = re.compile(
+    r"^\s*(?:import\s+jax\b|from\s+jax\b|import\s+repro(?:\.|\s|,|$)"
+    r"|from\s+repro(?:\.|\s))",
+    re.M,
+)
+
+
+def _port_modules() -> list[str]:
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_has_modules():
+    mods = _port_modules()
+    for want in ("repro_torch.kernels.circuit_eval", "repro_torch.core.api",
+                 "repro_torch.serve.circuits.server", "repro_torch.data.tabular"):
+        assert want in mods
+    assert (PORT / "csrc" / "circuit_eval.cu").is_file()
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    script = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{str(REPO / 'src')!r}, {str(REPO)!r}]\n"
+        f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and"
+        " (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
+        "assert not bad, bad\n"
+        "print('imported', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr
+    assert "imported" in r.stdout
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_or_reference_imports_in_source(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path}: {hits}"
+
+
+@pytest.mark.parametrize("line,forbidden", [
+    ("import jax", True),
+    ("import jax.numpy as jnp", True),
+    ("from jax import lax", True),
+    ("import repro", True),
+    ("from repro.core import gates", True),
+    ("    from repro.serve import x", True),
+    ("import repro_torch", False),
+    ("from repro_torch.core import gates", False),
+    ("import jaxlib_like_name_is_not_jax", False),
+])
+def test_forbidden_pattern_is_sharp(line, forbidden):
+    assert bool(FORBIDDEN.search(line)) is forbidden
