@@ -6,13 +6,18 @@
 Phases, one JSON line each; any failure exits non-zero before the result:
 
   1. env      — the card (nvidia-smi name and power limit), torch / CUDA /
-                nvcc versions, and the kernel library's build time (nvcc
-                for sm_90a into build/repro_torch/, from the sources here).
-  2. kernels  — each hand-written kernel against its plain PyTorch version
-                on the card, bitwise, at the reference sweep's shapes, the
-                full-width predict shape, a nomao-width tenant, n = 400,
-                and spans with mixed widths, misaligned / negative /
-                off-the-end offsets and the isolation case.
+                nvcc versions, the kernel library's build time (nvcc for
+                sm_90a into build/repro_torch/, from the sources here) and
+                each kernel's ``ptxas -v`` lines (registers, spills).
+  2. kernels  — each hand-written kernel, run on a live-gate program, against
+                both plain PyTorch versions on the card (genome level and
+                program level), bitwise, at the reference sweep's shapes,
+                the full-width predict shape, a nomao-width tenant and
+                n = 400, on valid and on corrupt genomes (negative, forward
+                and past-the-end ids, opcodes outside the table); spans with
+                slot gather (repeats, a negative slot id, a pad slot),
+                mixed widths, misaligned / negative / off-the-end offsets,
+                and the isolation case.
   3. predict  — the reference-fitted golden bundles (tests/torch_golden/)
                 predict every row of their datasets through
                 `ServableCircuit.predict` on the card; the class ids must
@@ -24,12 +29,24 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 result must equal the tenant's `predict` on the card (the
                 golden tenants: the committed ids) and each tick must make
                 one launch per shard with work.
+  5. timing   — each kernel at its main-path shape, on the live-gate
+                program and on the uncompacted one (every gate kept),
+                beside its plain version and its bound.
+  6. sweep    — the golden higgs program over W = 32 … 32,768 words.
+  7. profile  — one tick under `torch.profiler`: the device work it
+                launches (one spans kernel per shard and copies, nothing
+                else) and the device's busy share of the tick.
 
 Launch counts are set to 0 just before each main-path phase (3 and 4) and
 read just after; a kernel of the path that did not launch fails the run.
-Then each kernel is timed at its main-path shape beside its plain version
-and its bound, and the script prints a ``{"kernels": [...]}`` line, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Then the script prints a ``{"kernels": [...]}`` line, the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --ab DIR
+
+runs this tree's smoke run and DIR's (another checkout, e.g. the parent
+commit unpacked with ``git archive``) in turns on one card and prints each
+run's kernel times and launch phases, then the medians per tree.
 """
 from __future__ import annotations
 
@@ -53,11 +70,13 @@ from repro_torch.core.genome import CircuitSpec, init_genome, opcodes  # noqa: E
 from repro_torch.data import load_dataset  # noqa: E402
 from repro_torch.kernels import circuit_eval  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
+from repro_torch.kernels.program import compile_program  # noqa: E402
 from repro_torch.serve.circuits import CircuitRegistry, CircuitServer  # noqa: E402
 from repro_torch.serve.planning import PlacementPolicy, ensemble_vote  # noqa: E402
 
 GOLDEN = os.path.join(ROOT, "tests", "torch_golden")
 SEED = 0
+DEVICE = "cuda"  # every tensor and entry point of the run
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit integer
 # logic ops/s = 132 SMs x 64 INT32 lanes/clock x 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
@@ -93,8 +112,8 @@ def gpu_line() -> str:
     return out[0]
 
 
-def to_dev(*ts, device="cuda"):
-    return [t.to(device) for t in ts]
+def to_dev(*ts):
+    return [t.to(DEVICE) for t in ts]
 
 
 def mismatch(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
@@ -116,17 +135,55 @@ def random_population(g, n_in, n, n_out, pop, w):
     return opc, edge, outs, x
 
 
+def corrupt_population(g, n_in, n, n_out, pop, w):
+    """Genomes outside the contract: ids anywhere in [-2(I+n), 2(I+n))
+    (negative, forward and past-the-end) and opcodes in [-2, 16)."""
+    t = n_in + n
+    opc = torch.randint(-2, 16, (pop, n), generator=g, dtype=torch.int32)
+    edge = torch.randint(-2 * t, 2 * t, (pop, n, 2), generator=g, dtype=torch.int32)
+    outs = torch.randint(-2 * t, 2 * t, (pop, n_out), generator=g, dtype=torch.int32)
+    x = torch.randint(-2**31, 2**31 - 1, (n_in, w), generator=g, dtype=torch.int32)
+    return opc, edge, outs, x
+
+
 def span_case(g, n_in, pop, w):
-    """Spans arguments for a check shape: misaligned, negative and
-    off-the-end word offsets, and input widths from 0 to I."""
+    """Spans launch arguments for a check shape: pop + 1 launch slots with
+    repeats and one negative slot id, misaligned, negative and off-the-end
+    word offsets, per-circuit widths from 0 to I, and one pad slot
+    (live = 0).  Returns (slots, word_off, in_width, live, span)."""
     span = max(1, w // 3)
-    woff = torch.tensor([(7 * p + 1) % w - (p % 2) * w for p in range(pop)],
+    k = pop + 1
+    slots = torch.tensor([(3 * j + 1) % pop for j in range(k - 1)] + [-1],
+                         dtype=torch.int32)
+    woff = torch.tensor([(7 * j + 1) % w - (j % 2) * w for j in range(k)],
                         dtype=torch.int32)
     iw = torch.randint(0, n_in + 1, (pop,), generator=g, dtype=torch.int32)
-    return woff, iw, span
+    live = torch.tensor([int(j % 4 != 2) for j in range(k)], dtype=torch.int32)
+    return slots, woff, iw, live, span
+
+
+def spans_by_genome(opc, edge, outs, x, slots, woff, iw, live, span):
+    """The genome-level plain version of one spans launch: the reference's
+    fused tick (gather the slots' genomes, mask the widths), then spans."""
+    s = plain.land_slots(slots, opc.shape[0])
+    return plain.eval_population_spans_packed(opc[s], edge[s], outs[s], x, woff,
+                                              iw[s] * live, span_words=span)
 
 
 # -- phase 1 ----------------------------------------------------------------
+def ptxas_report(log: list[str]) -> dict:
+    """Each kernel's ``ptxas -v`` lines: registers, barriers, stack and
+    spills."""
+    out, kernel = {}, None
+    for ln in log:
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            kernel = next((k for k in ("eval_program_spans_kernel", "eval_program_kernel")
+                           if k in ln), None)
+        elif kernel and ("Used" in ln or "spill" in ln):
+            out.setdefault(kernel, []).append(ln.split("info    :")[-1].strip())
+    return out
+
+
 def phase_env() -> dict:
     card = gpu_line()
     nvcc = subprocess.run([circuit_eval._nvcc(), "--version"], capture_output=True,
@@ -143,56 +200,64 @@ def phase_env() -> dict:
         "device_count": torch.cuda.device_count(),
         "capability": list(torch.cuda.get_device_capability(0)),
         "build_s": build_s,
-        "ptxas": [ln.split("info    :")[-1].strip() for ln in log if "Used" in ln],
+        "ptxas": ptxas_report(log),
     }
     emit(env)
     return env
 
 
 # -- phase 2 ----------------------------------------------------------------
+def check_pair(stats, name, got, want_genome, want_program) -> None:
+    """Fold one kernel result into ``stats[name]``: [cases, mismatches
+    against the genome-level plain version, against the program-level
+    one, max |difference|]."""
+    torch.cuda.synchronize()
+    s = stats[name]
+    s[0] += 1
+    for i, want in ((1, want_genome), (2, want_program)):
+        bad, err = mismatch(got, want)
+        s[i] += bad
+        s[3] = max(s[3], err)
+
+
 def phase_kernel_checks() -> dict:
     g = torch.Generator().manual_seed(SEED)
-    stats = {"eval_population": [0, 0, 0], "eval_population_spans": [0, 0, 0]}
-    for n_in, n, n_out, pop, w in CHECK_SHAPES:
-        opc, edge, outs, x = to_dev(*random_population(g, n_in, n, n_out, pop, w))
-        want = plain.eval_population_packed(opc, edge, outs, x)
-        got = circuit_eval.eval_population(opc, edge, outs, x)
-        torch.cuda.synchronize()
-        bad, err = mismatch(got, want)
-        s = stats["eval_population"]
-        s[0] += 1
-        s[1] += bad
-        s[2] = max(s[2], err)
-        # spans: mixed widths (0 … I), misaligned / negative / off-the-end
-        woff, iw, span = span_case(g, n_in, pop, w)
-        woff, iw = to_dev(woff, iw)
-        want = plain.eval_population_spans_packed(opc, edge, outs, x, woff, iw,
-                                                  span_words=span)
-        got = circuit_eval.eval_population_spans(opc, edge, outs, x, woff, iw,
-                                                 span_words=span)
-        torch.cuda.synchronize()
-        bad, err = mismatch(got, want)
-        s = stats["eval_population_spans"]
-        s[0] += 1
-        s[1] += bad
-        s[2] = max(s[2], err)
+    stats = {"eval_population": [0, 0, 0, 0], "eval_population_spans": [0, 0, 0, 0]}
+    for shape in CHECK_SHAPES:
+        n_in, n, n_out, pop, w = shape
+        for make in (random_population, corrupt_population):
+            opc, edge, outs, x = to_dev(*make(g, *shape))
+            prog = compile_program(opc, edge, outs, n_in).to(DEVICE)
+            check_pair(stats, "eval_population", circuit_eval.eval_program(prog, x),
+                       plain.eval_population_packed(opc, edge, outs, x),
+                       plain.eval_program(prog, x))
+            slots, woff, iw, live, span = span_case(g, n_in, pop, w)
+            slots, woff, iw, live = to_dev(slots, woff, iw, live)
+            check_pair(stats, "eval_population_spans",
+                       circuit_eval.eval_program_spans(prog, x, slots, woff, iw, live,
+                                                       span_words=span),
+                       spans_by_genome(opc, edge, outs, x, slots, woff, iw, live, span),
+                       plain.eval_program_spans(prog, x, slots, woff, iw, live,
+                                                span_words=span))
     # isolation: rows past in_width are invisible even to edges that read them
     opc, edge, outs, x = to_dev(*random_population(g, 8, 10, 2, 1, 4))
+    prog = compile_program(opc, edge, outs, 8).to(DEVICE)
     poisoned, clean = x.clone(), x.clone()
     poisoned[5:] = 0x5EADBEEF
     clean[5:] = 0
-    woff = torch.zeros(1, dtype=torch.int32, device="cuda")
-    iw = torch.full((1,), 5, dtype=torch.int32, device="cuda")
-    a = circuit_eval.eval_population_spans(opc, edge, outs, poisoned, woff, iw, span_words=4)
-    b = circuit_eval.eval_population_spans(opc, edge, outs, clean, woff, iw, span_words=4)
+    zero, one, five = to_dev(*(torch.full((1,), v, dtype=torch.int32) for v in (0, 1, 5)))
+    a = circuit_eval.eval_program_spans(prog, poisoned, zero, zero, five, one, span_words=4)
+    b = circuit_eval.eval_program_spans(prog, clean, zero, zero, five, one, span_words=4)
     bad, _ = mismatch(a, b)
     stats["eval_population_spans"][1] += bad
     out = {"phase": "kernels", "isolation_mismatches": bad}
-    for name, (cases, bad, err) in stats.items():
-        out[name] = {"cases": cases, "mismatches": bad, "max_abs_err": err}
-        check(bad == 0, f"{name}: {bad} words differ from the plain version")
+    for name, (cases, bad_g, bad_p, err) in stats.items():
+        out[name] = {"cases": cases, "mismatches_vs_genome": bad_g,
+                     "mismatches_vs_program": bad_p, "max_abs_err": err}
+        check(bad_g == 0 and bad_p == 0,
+              f"{name}: {bad_g} + {bad_p} words differ from the plain versions")
     emit(out)
-    return {k: {"mismatches": v[1], "max_abs_err": v[2]} for k, v in stats.items()}
+    return {k: {"mismatches": v[1] + v[2], "max_abs_err": v[3]} for k, v in stats.items()}
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -212,7 +277,7 @@ def phase_predict(gold) -> dict:
     results = {}
     for name, (sc, ds, _) in gold.items():
         t0 = time.perf_counter()
-        results[name] = sc.predict(ds.x, device="cuda")
+        results[name] = sc.predict(ds.x, device=DEVICE)
         results[name + "_s"] = time.perf_counter() - t0
     launches = {k.name: k.launches for k in circuit_eval.KERNELS}
     out = {"phase": "predict", "launches": launches}
@@ -258,7 +323,7 @@ def build_registry(gold):
     return reg, sources
 
 
-def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple[dict, dict]:
+def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple:
     reg, sources = build_registry(gold)
     tenants = list(reg)
     rng = np.random.RandomState(SEED + 1)
@@ -267,7 +332,7 @@ def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple[dict, dict]:
     total = {k.name: 0 for k in circuit_eval.KERNELS}
     timing_case = None
     for n_shards in (1, 2):
-        server = CircuitServer(reg, device="cuda", policy=PlacementPolicy(n_shards=n_shards))
+        server = CircuitServer(reg, device=DEVICE, policy=PlacementPolicy(n_shards=n_shards))
         plan = server.plan()
         ticks = []
         for _ in range(n_ticks):
@@ -285,7 +350,7 @@ def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple[dict, dict]:
                 mine = [(lo, size) for t, lo, size in work if t == tenant]
                 x_all, _ = sources[tenant]
                 x = np.concatenate([x_all[lo:lo + s] for lo, s in mine])
-                ids = np.stack([m.predict(x, device="cuda") for m in reg.members(tenant)])
+                ids = np.stack([m.predict(x, device=DEVICE) for m in reg.members(tenant)])
                 expect[tenant] = np.split(ensemble_vote(ids, reg.get(tenant).n_classes),
                                           np.cumsum([s for _, s in mine])[:-1])
             circuit_eval.reset_launch_counts()
@@ -319,12 +384,13 @@ def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple[dict, dict]:
             check(counts["eval_population"] == 0, "the tick launched eval_population")
             if n_shards == 1:
                 timing_case = (plan.shards[0], report.span_words)
+                profile_case = (server, [(t, sources[t][0][lo:lo + s]) for t, lo, s in work])
         out["runs"].append({"n_shards": n_shards, "plan_hash": plan.content_hash,
                             "ticks": ticks})
     check(total["eval_population_spans"] > 0, "serve never launched the spans kernel")
     out["launches"] = total
     emit(out)
-    return total, timing_case
+    return total, timing_case, profile_case
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -386,8 +452,15 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_entry(kernel, checks, launches, shape, fn, plain_fn, nbytes, ops,
-                 live_gates, rows_read) -> dict:
+def launch_floor_ms() -> float:
+    """Device time of the least kernel, timed as the kernels are: a
+    one-word ``zero_``.  What a launch costs this way before any work."""
+    one = torch.empty(1, dtype=torch.int32, device=DEVICE)
+    return device_ms(one.zero_)
+
+
+def kernel_entry(kernel, checks, launches, shape, fn, full_fn, plain_fn, nbytes, ops,
+                 live_gates, rows_read, threads) -> dict:
     ms = device_ms(fn)
     b_ms, b_by = bound(nbytes, ops)
     return {
@@ -395,57 +468,98 @@ def kernel_entry(kernel, checks, launches, shape, fn, plain_fn, nbytes, ops,
         "source": "src/repro_torch/csrc/circuit_eval.cu",
         "replaces": kernel.replaces, "launches": launches,
         "max_abs_err": checks["max_abs_err"], "mismatches": checks["mismatches"],
-        "shape": shape, "ms": ms, "kernel_ms": ms,
+        "shape": shape, "threads": threads, "ms": ms, "kernel_ms": ms,
+        "uncompacted_ms": device_ms(full_fn),
         "kernel_wall_ms": wall_ms(fn, reps=20), "plain_ms": wall_ms(plain_fn),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
         "live_gates": live_gates, "input_rows_read": rows_read,
-        "library_ms": None,
+        "launch_floor_ms": launch_floor_ms(), "library_ms": None,
     }
+
+
+def golden_predict_case(gold, w=None):
+    """The golden higgs bundle's genome and packed words on the card: its
+    dataset (W = 3,065) or ``w`` random words."""
+    sc, ds, _ = gold["higgs"]
+    genome = (opcodes(sc.genome, sc.spec)[None], sc.genome.edge_src[None],
+              sc.genome.out_src[None])
+    if w is None:
+        bits = E.encode(sc.encoder, ds.x)
+        x = torch.from_numpy(E.pack_bits_rows(bits, E.n_words(ds.n_rows)).view(np.int32))
+    else:
+        g = torch.Generator().manual_seed(SEED + 3)
+        x = torch.randint(-2**31, 2**31 - 1, (sc.spec.n_inputs, w), generator=g,
+                          dtype=torch.int32)
+    return genome, x.to(DEVICE)
+
+
+def predict_bound(genome, n_in, w) -> tuple:
+    """(bytes, ops, live gates, rows read) one program eval over w words
+    needs: the live gates' genome, the input rows they read once each, and
+    the output words."""
+    opc, edge, outs = genome
+    n_out = outs.shape[1]
+    live, rows = live_work(opc[0], edge[0], outs[0], n_in, n_in)
+    return 4 * (3 * live + n_out + rows * w + n_out * w), live * w, live, rows
 
 
 def phase_timing(gold, checks, predict_launches, serve_launches, timing_case) -> list:
     entries = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # eval_population at the golden higgs predict shape (P = 1)
-    sc, ds, _ = gold["higgs"]
-    bits = E.encode(sc.encoder, ds.x)
-    xw = E.pack_bits_rows(bits, E.n_words(ds.n_rows))
-    opc, edge, outs, x = to_dev(opcodes(sc.genome, sc.spec)[None], sc.genome.edge_src[None],
-                                sc.genome.out_src[None], torch.from_numpy(xw.view(np.int32)))
+    genome, x = golden_predict_case(gold)
     n_in, w = x.shape
-    n, n_out = sc.spec.n_nodes, sc.spec.n_outputs
-    got = circuit_eval.eval_population(opc, edge, outs, x)
-    bad, err = mismatch(got, plain.eval_population_packed(opc, edge, outs, x))
-    check(bad == 0, "eval_population differs from plain at the predict shape")
-    # bound: what these inputs need — the live gates' genome, the input
-    # rows they read once each, and the output words
-    live, rows = live_work(opc[0].cpu(), edge[0].cpu(), outs[0].cpu(), n_in, n_in)
-    nbytes = 4 * (3 * live + n_out + rows * w + n_out * w)
-    ops = live * w
+    host = compile_program(*genome, n_in)
+    prog = host.to(DEVICE)
+    full = compile_program(*genome, n_in, compact=False).to(DEVICE)
+    for p in (prog, full):
+        bad, _ = mismatch(circuit_eval.eval_program(p, x),
+                          plain.eval_population_packed(*to_dev(*genome), x))
+        check(bad == 0, "eval_population differs from plain at the predict shape")
+    nbytes, ops, live, rows = predict_bound(genome, n_in, w)
+    # the bound's own count of the work guards the compiler's
+    check((live, rows) == (int(host.n_live.sum()), int(host.n_rows.sum())),
+          f"predict: live_work counts {live} gates, {rows} rows; the program "
+          f"{host.n_live.tolist()} and {host.n_rows.tolist()}")
     entries.append(kernel_entry(
         circuit_eval.EVAL_POPULATION, checks["eval_population"],
         predict_launches["eval_population"],
-        {"P": 1, "I": n_in, "n": n, "O": n_out, "W": w},
-        lambda: circuit_eval.eval_population(opc, edge, outs, x),
-        lambda: plain.eval_population_packed(opc, edge, outs, x), nbytes, ops, live, rows))
+        {"P": 1, "I": n_in, "n": genome[0].shape[1], "O": genome[2].shape[1], "W": w,
+         "R": prog.n_rows_max, "L": prog.n_gates},
+        lambda: circuit_eval.eval_program(prog, x),
+        lambda: circuit_eval.eval_program(full, x),
+        lambda: plain.eval_program(prog, x), nbytes, ops, live, rows,
+        circuit_eval.threads_per_block(prog, w, 1, sms)))
     # spans at the one-shard tick's shape: every slot live, back-to-back spans
     shard, span = timing_case
     k = shard.n_slots
     g = torch.Generator().manual_seed(SEED + 2)
     i_max = shard.n_inputs_max
     x = torch.randint(-2**31, 2**31 - 1, (i_max, k * span), generator=g,
-                      dtype=torch.int32).cuda()
+                      dtype=torch.int32).to(DEVICE)
     opc, edge, outs, iw = to_dev(*(torch.from_numpy(np.array(a)) for a in (
         shard.opcodes, shard.edge_src, shard.out_src, shard.in_width)))
-    woff = (torch.arange(k, dtype=torch.int32) * span).cuda()
-    got = circuit_eval.eval_population_spans(opc, edge, outs, x, woff, iw, span_words=span)
-    want = plain.eval_population_spans_packed(opc, edge, outs, x, woff, iw, span_words=span)
-    bad, _ = mismatch(got, want)
-    check(bad == 0, "eval_population_spans differs from plain at the tick shape")
+    host = compile_program(opc, edge, outs, i_max)
+    prog = host.to(DEVICE)
+    full = compile_program(opc, edge, outs, i_max, compact=False).to(DEVICE)
+    slots = torch.arange(k, dtype=torch.int32, device=DEVICE)
+    live_k = torch.ones_like(slots)
+    woff = slots * span
+    want = spans_by_genome(opc, edge, outs, x, slots, woff, iw, live_k, span)
+    for p in (prog, full):
+        bad, _ = mismatch(circuit_eval.eval_program_spans(p, x, slots, woff, iw, live_k,
+                                                          span_words=span), want)
+        check(bad == 0, "eval_population_spans differs from plain at the tick shape")
     n, n_out = shard.opcodes.shape[1], shard.out_src.shape[1]
     # bound: per slot, its live gates' genome, offset and width, and the
     # input rows below its width that they read, over its own span
     work = [live_work(shard.opcodes[p], shard.edge_src[p], shard.out_src[p], i_max,
                       int(shard.in_width[p])) for p in range(k)]
+    staged = [int((host.rows[p, :int(host.n_rows[p])] < int(shard.in_width[p])).sum())
+              for p in range(k)]
+    check([a for a, _ in work] == host.n_live.tolist() and [r for _, r in work] == staged,
+          f"spans: live_work counts {work}; the program {host.n_live.tolist()} gates "
+          f"and {staged} rows below the widths")
     live, rows = sum(a for a, _ in work), sum(r for _, r in work)
     nbytes = 4 * (3 * live + k * (n_out + 2) + rows * span + k * n_out * span)
     ops = live * span
@@ -453,16 +567,131 @@ def phase_timing(gold, checks, predict_launches, serve_launches, timing_case) ->
         circuit_eval.EVAL_POPULATION_SPANS, checks["eval_population_spans"],
         serve_launches["eval_population_spans"],
         {"P": k, "I_max": i_max, "n": n, "O": n_out, "span_words": span,
-         "W_total": k * span},
-        lambda: circuit_eval.eval_population_spans(opc, edge, outs, x, woff, iw,
-                                                   span_words=span),
-        lambda: plain.eval_population_spans_packed(opc, edge, outs, x, woff, iw,
-                                                   span_words=span),
-        nbytes, ops, live, rows))
+         "W_total": k * span, "R": prog.n_rows_max, "L": prog.n_gates},
+        lambda: circuit_eval.eval_program_spans(prog, x, slots, woff, iw, live_k,
+                                                span_words=span),
+        lambda: circuit_eval.eval_program_spans(full, x, slots, woff, iw, live_k,
+                                                span_words=span),
+        lambda: plain.eval_program_spans(prog, x, slots, woff, iw, live_k,
+                                         span_words=span),
+        nbytes, ops, live, rows, circuit_eval.threads_per_block(prog, span, k, sms)))
     return entries
 
 
+def phase_sweep(gold, widths=(32, 256, 3065, 32768)) -> dict:
+    """The golden higgs program over W words: kernel time against W, live
+    and uncompacted, beside the bound."""
+    out = {"phase": "sweep", "kernel": "eval_population", "program": "golden higgs",
+           "points": []}
+    for w in widths:
+        genome, x = golden_predict_case(gold, w)
+        n_in = x.shape[0]
+        prog = compile_program(*genome, n_in).to(DEVICE)
+        full = compile_program(*genome, n_in, compact=False).to(DEVICE)
+        bad, _ = mismatch(circuit_eval.eval_program(prog, x),
+                          circuit_eval.eval_program(full, x))
+        check(bad == 0, f"sweep W={w}: the live and the full program disagree")
+        nbytes, ops, live, rows = predict_bound(genome, n_in, w)
+        b_ms, b_by = bound(nbytes, ops)
+        out["points"].append({
+            "W": w, "ms": device_ms(lambda: circuit_eval.eval_program(prog, x)),
+            "uncompacted_ms": device_ms(lambda: circuit_eval.eval_program(full, x)),
+            "bound_ms": b_ms, "bound_by": b_by, "live_gates": live, "n": genome[0].shape[1],
+        })
+    emit(out)
+    return out
+
+
+def phase_profile(profile_case) -> dict:
+    """One one-shard tick under `torch.profiler`: the device work it
+    launches and the device's busy share of the tick."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    server, work = profile_case
+    tickets = [server.submit(t, x) for t, x in work]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        report = server.tick()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    for t in tickets:
+        server.result(t)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names: dict = {}
+    for e in device:
+        names[e.name] = names.get(e.name, 0) + 1
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    spans = sum(v for k, v in names.items() if "eval_program_spans_kernel" in k)
+    other = {k: v for k, v in names.items()
+             if "eval_program_spans_kernel" not in k and not k.startswith(("Memcpy", "Memset"))}
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
+    out = {"phase": "profile", "device_events": names, "device_busy_us": busy_us,
+           "host_top": [(e.key, e.count, e.self_cpu_time_total) for e in host],
+           "tick_wall_us": wall_us, "launches": report.launches,
+           "launch_phase_ms": report.phase_s["launch"] * 1e3,
+           "idle_share": None if not device else 1 - busy_us / wall_us}
+    emit(out)
+    if device:  # the profiler saw the card: the tick is one kernel per shard
+        check(spans == report.launches, f"profiled tick: {spans} spans kernels "
+              f"for {report.launches} launches")
+        check(not other, f"profiled tick launched other kernels: {other}")
+    return out
+
+
+# -- A/B against another tree ----------------------------------------------
+def run_summary(text: str) -> dict:
+    """Each kernel's ``ms`` and uncompacted ms, and the one-shard ticks'
+    launch-phase ms, from one run's standard output."""
+    out = {"kernels": {}, "launch_ms": []}
+    for line in text.splitlines():
+        if not line.startswith("{"):
+            continue
+        obj = json.loads(line)
+        if "kernels" in obj:
+            out["kernels"] = {k["name"]: {"ms": k["ms"], "uncompacted_ms": k.get("uncompacted_ms")}
+                              for k in obj["kernels"]}
+        elif obj.get("phase") == "serve":
+            out["launch_ms"] = [t["phase_s"]["launch"] * 1e3 for r in obj["runs"]
+                                if r["n_shards"] == 1 for t in r["ticks"]]
+        elif obj.get("phase") == "env":
+            out["card"] = obj["card"]
+    return out
+
+
+def run_ab(other: str) -> int:
+    """``python3 chip_smoke.py --ab DIR``: this tree's smoke run against the
+    one in DIR (another checkout, such as the parent commit) on the same
+    card, in turns other, this, this, other.  Each run's output goes to
+    ``chiprun_out/ab<i>_<tree>.txt``; one summary line per run, then the
+    medians per tree (steady ticks: all but each run's first)."""
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    trees = {"other": os.path.abspath(other), "this": ROOT}
+    per_tree: dict = {"other": [], "this": []}
+    failed = 0
+    for i, which in enumerate(("other", "this", "this", "other"), 1):
+        res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=trees[which],
+                             capture_output=True, text=True, timeout=1200)
+        with open(os.path.join(ROOT, "chiprun_out", f"ab{i}_{which}.txt"), "w") as f:
+            f.write(res.stdout + res.stderr)
+        summ = run_summary(res.stdout)
+        failed += res.returncode != 0
+        per_tree[which].append(summ)
+        emit({"ab": i, "tree": which, "rc": res.returncode, **summ})
+    for which, runs in per_tree.items():
+        names = runs[0]["kernels"] if runs else {}
+        emit({"ab": "median", "tree": which,
+              "kernel_ms": {n: [r["kernels"].get(n, {}).get("ms") for r in runs] for n in names},
+              "launch_median_ms": statistics.median(
+                  [v for r in runs for v in r["launch_ms"]] or [float("nan")]),
+              "steady_launch_median_ms": statistics.median(
+                  [v for r in runs for v in r["launch_ms"][1:]] or [float("nan")])})
+    return 1 if failed else 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        return run_ab(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -471,8 +700,10 @@ def main() -> int:
     checks = phase_kernel_checks()
     gold = golden()
     predict_launches = phase_predict(gold)
-    serve_launches, timing_case = phase_serve(gold)
+    serve_launches, timing_case, profile_case = phase_serve(gold)
     entries = phase_timing(gold, checks, predict_launches, serve_launches, timing_case)
+    phase_sweep(gold)
+    phase_profile(profile_case)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     emit({"kernels": entries})

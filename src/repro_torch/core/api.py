@@ -19,6 +19,7 @@ import torch
 from repro_torch import runtime
 from repro_torch.core import encoding as E
 from repro_torch.core.genome import CircuitSpec, Genome, opcodes
+from repro_torch.kernels.program import CircuitProgram, compile_program
 
 # On-disk bundle format (the reference's).  Version history:
 #   1 — genome + spec + encoder + class count + validated backend.
@@ -69,6 +70,10 @@ class ServableCircuit:
     ref_stats: "np.ndarray | None" = dataclasses.field(
         default=None, compare=False, repr=False
     )
+    # the live-gate program per device, compiled at first use
+    _programs: dict = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False
+    )
 
     def __post_init__(self):
         if self.spec.n_inputs != self.encoder.n_bits_total:
@@ -93,6 +98,22 @@ class ServableCircuit:
     def n_outputs(self) -> int:
         return self.spec.n_outputs
 
+    def program(self, device: "str | torch.device" = "cpu") -> CircuitProgram:
+        """The genome's live-gate program (`kernels/program.py`) on
+        ``device``: compiled once, copied once to each device."""
+        dev = torch.device(device)
+        if dev not in self._programs:
+            host = self._programs.get(torch.device("cpu"))
+            if host is None:
+                host = compile_program(
+                    opcodes(self.genome, self.spec)[None],
+                    self.genome.edge_src[None], self.genome.out_src[None],
+                    self.spec.n_inputs,
+                )
+                self._programs[torch.device("cpu")] = host
+            self._programs[dev] = host.to(dev)
+        return self._programs[dev]
+
     def predict(
         self, x: np.ndarray, *, device: "str | torch.device | None" = None,
     ) -> np.ndarray:
@@ -105,12 +126,9 @@ class ServableCircuit:
         bits = E.encode(self.encoder, np.asarray(x, np.float32))
         r = bits.shape[0]
         x_words = E.pack_bits_rows(bits, E.n_words(r))
-        out = be.eval_circuit(
-            opcodes(self.genome, self.spec).to(dev),
-            self.genome.edge_src.to(dev),
-            self.genome.out_src.to(dev),
-            torch.from_numpy(x_words.view(np.int32)).to(dev),
-        )
+        out = be.eval_program(
+            self.program(dev), torch.from_numpy(x_words.view(np.int32)).to(dev)
+        )[0]
         return decode_predictions(out.cpu().numpy(), r, self.n_classes)
 
 

@@ -1,2 +1,3 @@
-"""Circuit evaluation: hand-written CUDA kernels (`circuit_eval`), their
-plain PyTorch versions (`ref`), and device-dispatching wrappers (`ops`)."""
+"""Circuit evaluation: live-gate programs (`program`), hand-written CUDA
+kernels (`circuit_eval`), their plain PyTorch versions (`ref`), and
+device-dispatching wrappers (`ops`)."""

@@ -7,7 +7,10 @@ computes and how it is laid out for the card.  This module builds that
 source with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface at first use, loads it with `ctypes`, and wraps each kernel:
 
-  * the wrappers take CUDA ``int32`` tensors only (words carry the
+  * the wrappers take a `CircuitProgram` (`kernels/program.py`: each
+    circuit's live gates, the input rows they read, its taps), compiled
+    once on the host, and the words;
+  * they take CUDA ``int32`` tensors only (words carry the
     reference's ``uint32`` bits) and raise on anything else — a CPU tensor
     is the plain version's business (`kernels/ref.py`, via `kernels/ops.py`);
   * outputs are allocated with `torch.empty`; launches go on the current
@@ -30,6 +33,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.program import CircuitProgram
+
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "circuit_eval.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -38,7 +43,7 @@ NVCC_FLAGS = (
 )
 # dynamic shared memory one CTA may hold on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
-MAX_THREADS = 128
+H100_SMS = 132
 
 
 class CudaKernelError(RuntimeError):
@@ -56,11 +61,11 @@ class CudaKernel:
 
 
 EVAL_POPULATION = CudaKernel(
-    "eval_population", "circuit_eval_population",
+    "eval_population", "circuit_eval_program",
     "src/repro/kernels/circuit_eval.py:182",
 )
 EVAL_POPULATION_SPANS = CudaKernel(
-    "eval_population_spans", "circuit_eval_population_spans",
+    "eval_population_spans", "circuit_eval_program_spans",
     "src/repro/kernels/circuit_eval.py:137",
 )
 KERNELS = (EVAL_POPULATION, EVAL_POPULATION_SPANS)
@@ -124,29 +129,43 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.circuit_eval_population.argtypes = [p] * 5 + [i] * 6 + [p]
-            lib.circuit_eval_population.restype = i
-            lib.circuit_eval_population_spans.argtypes = (
-                [p] * 7 + [i] * 7 + [p]
-            )
-            lib.circuit_eval_population_spans.restype = i
+            lib.circuit_eval_program.argtypes = (
+                [p] * 5 + [i] * 4 + [p] * 2 + [i] * 3 + [p])
+            lib.circuit_eval_program.restype = i
+            lib.circuit_eval_program_spans.argtypes = (
+                [p] * 5 + [i] * 4 + [p] * 6 + [i] * 5 + [p])
+            lib.circuit_eval_program_spans.restype = i
             lib.circuit_eval_error_string.argtypes = [i]
             lib.circuit_eval_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
-def threads_per_block(n_nodes: int, n_outputs: int) -> int:
-    """Words (threads) per CTA: up to 128, as many as the [n][T] gate table
-    plus the staged genome leave room for in 227 KB, in whole warps."""
-    genome_bytes = 4 * (3 * n_nodes + n_outputs)
-    t = (MAX_SMEM_BYTES - genome_bytes) // (4 * n_nodes) // 32 * 32
-    if t < 32:
+def smem_bytes(table_rows: int, n_gates: int, n_outputs: int, threads: int) -> int:
+    """Dynamic shared memory of one CTA: the ``[R+L+1][T]`` value table
+    (``table_rows`` = R+L+1), the packed gates and the taps."""
+    return 4 * (table_rows * threads + n_gates + n_outputs)
+
+
+def threads_per_block(program: CircuitProgram, words: int, circuits: int,
+                      sms: int = H100_SMS) -> int:
+    """Words (threads) per CTA for ``circuits`` circuits of ``words`` words
+    each: the largest of 128, 64, 32 that still gives two CTAs per SM
+    (else 32, the most CTAs), and no more than the program's table leaves
+    room for in 227 KB."""
+    rows = program.zero_code + 1
+    fits = [t for t in (128, 64, 32) if smem_bytes(
+        rows, program.n_gates, program.n_outputs, t) <= MAX_SMEM_BYTES]
+    if not fits:
         raise ValueError(
-            f"a circuit of {n_nodes} gates does not fit one CTA's shared "
+            f"a program of {program.n_rows_max} staged rows and "
+            f"{program.n_gates} live gates does not fit one CTA's shared "
             f"memory at 32 words per CTA ({MAX_SMEM_BYTES} bytes)"
         )
-    return min(MAX_THREADS, t)
+    for t in fits:
+        if circuits * -(-words // t) >= 2 * sms:
+            return t
+    return fits[-1]
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -163,24 +182,27 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_circuits(opcodes, edge_src, out_src, x_words):
-    """Validate the genome arrays and the words for a launch; returns
-    (P, n, O, I, W, device)."""
-    for name, t, dims in (("x_words", x_words, 2), ("opcodes", opcodes, 2),
-                          ("out_src", out_src, 2)):
-        if not isinstance(t, torch.Tensor) or t.dim() != dims:
-            raise ValueError(f"{name} must be a {dims}-D tensor")
-    n_in, w = x_words.shape
-    pop, n = opcodes.shape
-    n_out = out_src.shape[1]
-    if n < 1:
-        raise ValueError("a circuit needs at least one gate")
+def _check_program(program: CircuitProgram, x_words: torch.Tensor):
+    """Validate a program and the words for a launch; returns the program's
+    launch arguments (pointers and sizes) and the words' device."""
+    if not isinstance(program, CircuitProgram):
+        raise ValueError(f"expected a CircuitProgram, got {type(program).__name__}")
+    if not isinstance(x_words, torch.Tensor) or x_words.dim() != 2:
+        raise ValueError("x_words must be a 2-D tensor")
+    if program.gates.dim() != 3 or program.taps.dim() != 2:
+        raise ValueError("program.gates must be 3-D and program.taps 2-D")
     dev = x_words.device
-    _check("x_words", x_words, (n_in, w), dev)
-    _check("opcodes", opcodes, (pop, n), dev)
-    _check("edge_src", edge_src, (pop, n, 2), dev)
-    _check("out_src", out_src, (pop, n_out), dev)
-    return pop, n, n_out, n_in, w, dev
+    pop, n_l, n_r, n_out = (program.pop, program.n_gates, program.n_rows_max,
+                            program.n_outputs)
+    _check("x_words", x_words, (program.n_inputs, x_words.shape[1]), dev)
+    _check("program.gates", program.gates, (pop, n_l, 3), dev)
+    _check("program.n_live", program.n_live, (pop,), dev)
+    _check("program.rows", program.rows, (pop, n_r), dev)
+    _check("program.n_rows", program.n_rows, (pop,), dev)
+    _check("program.taps", program.taps, (pop, n_out), dev)
+    ptrs = [getattr(program, k).data_ptr()
+            for k in ("gates", "n_live", "rows", "n_rows", "taps")]
+    return [*ptrs, pop, n_l, n_r, n_out], dev
 
 
 def _launch(kernel: CudaKernel, device, *args) -> None:
@@ -194,57 +216,64 @@ def _launch(kernel: CudaKernel, device, *args) -> None:
     kernel.launches += 1
 
 
-def eval_population(
-    opcodes: torch.Tensor,   # i32[P, n]
-    edge_src: torch.Tensor,  # i32[P, n, 2]
-    out_src: torch.Tensor,   # i32[P, O]
-    x_words: torch.Tensor,   # i32[I, W]
-) -> torch.Tensor:           # i32[P, O, W]
-    """P circuits over one shared packed dataset, on the card."""
-    pop, n, n_out, n_in, w, dev = _check_circuits(opcodes, edge_src, out_src, x_words)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def eval_program(
+    program: CircuitProgram,  # P circuits, compiled for I input rows
+    x_words: torch.Tensor,    # i32[I, W]
+) -> torch.Tensor:            # i32[P, O, W]
+    """P live-gate programs over one shared packed dataset, on the card."""
+    prog_args, dev = _check_program(program, x_words)
+    n_in, w = x_words.shape
+    pop, n_out = program.pop, program.n_outputs
     out = torch.empty((pop, n_out, w), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
     _launch(
-        EVAL_POPULATION, dev,
-        opcodes.data_ptr(), edge_src.data_ptr(), out_src.data_ptr(),
-        x_words.data_ptr(), out.data_ptr(),
-        pop, n, n_out, n_in, w, threads_per_block(n, n_out),
+        EVAL_POPULATION, dev, *prog_args, x_words.data_ptr(), out.data_ptr(),
+        n_in, w, threads_per_block(program, w, pop, _sms(dev)),
     )
     return out
 
 
-def eval_population_spans(
-    opcodes: torch.Tensor,   # i32[P, n]
-    edge_src: torch.Tensor,  # i32[P, n, 2]
-    out_src: torch.Tensor,   # i32[P, O]
-    x_words: torch.Tensor,   # i32[I_max, W_total] fused multi-tenant buffer
-    word_off: torch.Tensor,  # i32[P] word offset of circuit p's span
-    in_width: torch.Tensor,  # i32[P] live input rows of circuit p
+def eval_program_spans(
+    program: CircuitProgram,  # a shard's S resident programs
+    x_words: torch.Tensor,    # i32[I_max, W_total] fused multi-tenant buffer
+    slots: torch.Tensor,      # i32[K] program circuit of launch slot k
+    word_off: torch.Tensor,   # i32[K] word offset of slot k's span
+    in_width: torch.Tensor,   # i32[S] live input rows of each circuit
+    live: torch.Tensor,       # i32[K] 0 masks slot k's inputs off
     *,
     span_words: int,
-) -> torch.Tensor:           # i32[P, O, span_words]
-    """Circuit p over its own word span of the fused buffer, input rows
-    ``>= in_width[p]`` read as zero; any offset is served as the
-    reference's ``dynamic_slice`` serves it (negative from the end, then
-    clamped into the buffer)."""
-    pop, n, n_out, n_in, w_total, dev = _check_circuits(
-        opcodes, edge_src, out_src, x_words)
-    _check("word_off", word_off, (pop,), dev)
-    _check("in_width", in_width, (pop,), dev)
+) -> torch.Tensor:            # i32[K, O, span_words]
+    """Launch slot k runs circuit ``slots[k]`` over its own word span of the
+    fused buffer, input rows ``>= in_width[slots[k]] * live[k]`` read as
+    zero; the slot gather happens inside the kernel.  Any offset is served
+    as the reference's ``dynamic_slice`` serves it (negative from the end,
+    then clamped into the buffer)."""
+    prog_args, dev = _check_program(program, x_words)
+    n_in, w_total = x_words.shape
+    if not isinstance(slots, torch.Tensor) or slots.dim() != 1:
+        raise ValueError("slots must be a 1-D tensor")
+    k = slots.shape[0]
+    _check("slots", slots, (k,), dev)
+    _check("word_off", word_off, (k,), dev)
+    _check("in_width", in_width, (program.pop,), dev)
+    _check("live", live, (k,), dev)
     span = int(span_words)
     if not 1 <= span <= w_total:
         raise ValueError(
             f"span_words={span} must be in [1, {w_total}] (the buffer's words)"
         )
-    out = torch.empty((pop, n_out, span), dtype=torch.int32, device=dev)
+    out = torch.empty((k, program.n_outputs, span), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
     _launch(
-        EVAL_POPULATION_SPANS, dev,
-        opcodes.data_ptr(), edge_src.data_ptr(), out_src.data_ptr(),
-        x_words.data_ptr(), word_off.data_ptr(), in_width.data_ptr(),
-        out.data_ptr(),
-        pop, n, n_out, n_in, w_total, span, threads_per_block(n, n_out),
+        EVAL_POPULATION_SPANS, dev, *prog_args, x_words.data_ptr(),
+        slots.data_ptr(), word_off.data_ptr(), in_width.data_ptr(),
+        live.data_ptr(), out.data_ptr(), k, n_in, w_total, span,
+        threads_per_block(program, span, k, _sms(dev)),
     )
     return out

@@ -4,13 +4,29 @@ Each call goes where its tensors lie, through the one device → backend
 decision of the port (`runtime.backend_for`): words on a CUDA device launch
 the hand-written kernel (`kernels/circuit_eval.py`) or raise; words on the
 CPU run the plain PyTorch version (`kernels/ref.py`).  Nothing catches a
-kernel failure and carries on elsewhere.
+kernel failure and carries on elsewhere.  The genome-level entry points
+compile a `CircuitProgram` (`kernels/program.py`) and evaluate it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.program import CircuitProgram
 from repro_torch.runtime import backend_for
+
+
+def eval_program(program: CircuitProgram, x_words: torch.Tensor) -> torch.Tensor:
+    """Live-gate programs over a shared packed dataset → i32[P, O, W]."""
+    return backend_for(x_words.device).eval_program(program, x_words)
+
+
+def eval_program_spans(program, x_words, slots, word_off, in_width, live, *,
+                       span_words: int) -> torch.Tensor:
+    """Launch slot k runs program circuit ``slots[k]`` over its own span,
+    input rows ``>= in_width[slots[k]] * live[k]`` read as zero →
+    i32[K, O, span_words]."""
+    return backend_for(x_words.device).eval_program_spans(
+        program, x_words, slots, word_off, in_width, live, span_words=span_words)
 
 
 def eval_population(

@@ -7,9 +7,9 @@ from repro_torch.runtime.base import BackendCapabilities, EvalBackend
 
 
 class TorchRefBackend(EvalBackend):
-    """Plain PyTorch versions (`kernels/ref.py`): the oracle the kernels
-    are held to, and the backend of every entry point called with
-    ``device="cpu"``."""
+    """Plain PyTorch versions of the program entry points (`kernels/ref.py`
+    ``eval_program*``): the oracle the kernels are held to, and the
+    backend of every entry point called with ``device="cpu"``."""
 
     name = "torch-ref"
 
@@ -22,15 +22,13 @@ class TorchRefBackend(EvalBackend):
             span_offset_contract="none",
         )
 
-    def eval_population(self, opcodes, edge_src, out_src, x_words):
-        return ref.eval_population_packed(opcodes, edge_src, out_src, x_words)
+    def eval_program(self, program, x_words):
+        return ref.eval_program(program, x_words)
 
-    def eval_population_spans(
-        self, opcodes, edge_src, out_src, x_words, word_off, in_width,
-        *, span_words: int,
-    ):
-        return ref.eval_population_spans_packed(
-            opcodes, edge_src, out_src, x_words, word_off, in_width,
+    def eval_program_spans(self, program, x_words, slots, word_off, in_width,
+                           live, *, span_words: int):
+        return ref.eval_program_spans(
+            program, x_words, slots, word_off, in_width, live,
             span_words=span_words,
         )
 
@@ -52,14 +50,12 @@ class CudaBackend(EvalBackend):
             span_offset_contract="none",
         )
 
-    def eval_population(self, opcodes, edge_src, out_src, x_words):
-        return circuit_eval.eval_population(opcodes, edge_src, out_src, x_words)
+    def eval_program(self, program, x_words):
+        return circuit_eval.eval_program(program, x_words)
 
-    def eval_population_spans(
-        self, opcodes, edge_src, out_src, x_words, word_off, in_width,
-        *, span_words: int,
-    ):
-        return circuit_eval.eval_population_spans(
-            opcodes, edge_src, out_src, x_words, word_off, in_width,
+    def eval_program_spans(self, program, x_words, slots, word_off, in_width,
+                           live, *, span_words: int):
+        return circuit_eval.eval_program_spans(
+            program, x_words, slots, word_off, in_width, live,
             span_words=span_words,
         )

@@ -1,8 +1,18 @@
 """EvalBackend abstraction: the execution seam of the port.
 
 A backend owns *how* a population of sea-of-gates circuits is evaluated
-on bit-packed ``int32`` words, behind three entry points whose contracts
-are fixed:
+on bit-packed ``int32`` words.  It implements two entry points over
+live-gate programs (`kernels/program.py`, compiled once on the host):
+
+  * ``eval_program(program, x_words)`` → i32[P, O, W]
+  * ``eval_program_spans(program, x_words, slots, word_off, in_width,
+    live, *, span_words)`` → i32[K, O, span_words]: launch slot k runs
+    program circuit ``slots[k]`` over its own span, input rows
+    ≥ ``in_width[slots[k]] * live[k]`` masked to zero (the slot gather is
+    part of the entry point, so a shard's tick is one call)
+
+and, on top of them, three genome-level entry points whose contracts are
+fixed (each compiles a program, then evaluates it):
 
   * ``eval_population(opcodes, edge_src, out_src, x_words)``
       i32[P, n], i32[P, n, 2], i32[P, O], i32[I, W] → i32[P, O, W]
@@ -21,6 +31,8 @@ import abc
 import dataclasses
 
 import torch
+
+from repro_torch.kernels.program import CircuitProgram, compile_program
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +64,27 @@ class EvalBackend(abc.ABC):
         """Static descriptor: spans support, alignment, device kinds."""
 
     @abc.abstractmethod
+    def eval_program(
+        self,
+        program: CircuitProgram,  # P circuits compiled for I input rows
+        x_words: torch.Tensor,    # i32[I, W]
+    ) -> torch.Tensor:            # i32[P, O, W]
+        """Evaluate live-gate programs on a shared packed dataset."""
+
+    @abc.abstractmethod
+    def eval_program_spans(
+        self,
+        program: CircuitProgram,  # S resident circuits (a plan shard)
+        x_words: torch.Tensor,    # i32[I_max, W_total] fused buffer
+        slots: torch.Tensor,      # i32[K] program circuit of launch slot k
+        word_off: torch.Tensor,   # i32[K] word offset of slot k's span
+        in_width: torch.Tensor,   # i32[S] live input rows per circuit
+        live: torch.Tensor,       # i32[K] 0 masks slot k's inputs off
+        *,
+        span_words: int,
+    ) -> torch.Tensor:            # i32[K, O, span_words]
+        """Multi-tenant eval: slot gather, span windows and width masks."""
+
     def eval_population(
         self,
         opcodes: torch.Tensor,   # i32[P, n]
@@ -60,8 +93,9 @@ class EvalBackend(abc.ABC):
         x_words: torch.Tensor,   # i32[I, W]
     ) -> torch.Tensor:           # i32[P, O, W]
         """Evaluate a population of circuits on a shared packed dataset."""
+        program = compile_program(opcodes, edge_src, out_src, x_words.shape[0])
+        return self.eval_program(program.to(x_words.device), x_words)
 
-    @abc.abstractmethod
     def eval_population_spans(
         self,
         opcodes: torch.Tensor,   # i32[P, n]
@@ -74,6 +108,13 @@ class EvalBackend(abc.ABC):
         span_words: int,
     ) -> torch.Tensor:           # i32[P, O, span_words]
         """Multi-tenant population eval over per-circuit word spans."""
+        dev = x_words.device
+        program = compile_program(opcodes, edge_src, out_src, x_words.shape[0])
+        slots = torch.arange(program.pop, dtype=torch.int32, device=dev)
+        return self.eval_program_spans(
+            program.to(dev), x_words, slots, word_off, in_width,
+            torch.ones_like(slots), span_words=span_words,
+        )
 
     def eval_circuit(
         self,
@@ -123,6 +164,22 @@ class _InstrumentedBackend(EvalBackend):
 
     def span_alignment(self, requested: int | None = None) -> int:
         return self._inner.span_alignment(requested)
+
+    # program entry points report under the kernel they reach
+    def eval_program(self, program, x_words):
+        with self._hook("eval_population", population=program.pop,
+                        words=int(x_words.shape[-1])):
+            return self._inner.eval_program(program, x_words)
+
+    def eval_program_spans(self, program, x_words, slots, word_off, in_width,
+                           live, *, span_words: int):
+        with self._hook("eval_population_spans",
+                        population=int(slots.shape[0]),
+                        span_words=int(span_words)):
+            return self._inner.eval_program_spans(
+                program, x_words, slots, word_off, in_width, live,
+                span_words=span_words,
+            )
 
     def eval_population(self, opcodes, edge_src, out_src, x_words):
         with self._hook("eval_population", population=int(opcodes.shape[0]),

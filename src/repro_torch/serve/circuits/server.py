@@ -4,16 +4,18 @@ Request flow (one `tick()`):
 
   1. snapshot every tenant's pending float-feature rows;
   2. refresh the compiled plan (the `PlanCompiler` recompiles only when
-     the registry generation moved; device copies of the shard genomes
-     are cached by shard content hash, so an unchanged shard never
-     re-uploads);
+     the registry generation moved; each shard's live-gate program is
+     compiled and uploaded once, cached by shard content hash, so an
+     unchanged shard never re-uploads);
   3. per tenant, run the encode→bit-pack pipeline once per ensemble
      member over all its pending requests (host numpy);
   4. fuse each plan shard's work into its own padded
      ``u32[I_max, S·span]`` word buffer — slot k owns the word span
-     ``[k·span, (k+1)·span)`` — copy it to the shard's device and enqueue
-     **one fused `eval_population_spans` launch per shard** (all launches
-     are enqueued before any output is read back);
+     ``[k·span, (k+1)·span)`` — copy it and one small int32 buffer of
+     launch slots, offsets and live flags to the shard's device and
+     enqueue **one fused `eval_population_spans` launch per shard**, with
+     the slot gather inside the kernel (all launches are enqueued before
+     any output is read back);
   5. read back, decode each member's live output bits to class ids,
      majority-vote ensemble members, and scatter results to the
      originating requests.
@@ -35,6 +37,7 @@ import torch
 from repro_torch import runtime
 from repro_torch.core import encoding as E
 from repro_torch.core.api import decode_predictions
+from repro_torch.kernels.program import compile_program
 from repro_torch.serve.circuits.metrics import TICK_PHASES, ServerStats, TickReport
 from repro_torch.serve.circuits.registry import CircuitRegistry
 from repro_torch.serve.observability.trace import NULL_TRACER, TraceRecorder
@@ -94,8 +97,8 @@ class CircuitServer:
         self._pending: dict[str, list[_Pending]] = {}
         self._results: dict[int, "np.ndarray | Exception"] = {}
         self._next_ticket = 0
-        # compiled-plan cache (generation-tagged) + device copies of each
-        # shard's genome arrays keyed by shard content hash
+        # compiled-plan cache (generation-tagged) + each shard's live-gate
+        # program and input widths on its device, keyed by content hash
         self._plan_lock = threading.Lock()
         self._compiled: CompiledPlan | None = None
         self._dev: dict[str, tuple] = {}
@@ -172,7 +175,7 @@ class CircuitServer:
     # -- the compiled plan ---------------------------------------------
     def _refresh_plan(self) -> tuple[CompiledPlan, dict]:
         """Compiled plan for the current registry generation plus its
-        device-side genome tensors, as one consistent snapshot (a
+        device-side programs, as one consistent snapshot (a
         concurrent recompile cannot pull tensors out from under a tick in
         flight).  Uploads are cached by shard content hash, so hot-swapping
         one tenant re-uploads only the shards it changed.  The fast path is
@@ -197,12 +200,13 @@ class CircuitServer:
             return compiled, dev
 
     def _upload_shard(self, shard) -> tuple:
+        """A shard's resident launch inputs on its device: the live-gate
+        program of its slots and their input widths."""
         device = self.device_for(shard.shard)
-        return tuple(
-            torch.tensor(a, dtype=torch.int32, device=device)
-            for a in (shard.opcodes, shard.edge_src, shard.out_src,
-                      shard.in_width)
-        )
+        program = compile_program(shard.opcodes, shard.edge_src,
+                                  shard.out_src, shard.n_inputs_max)
+        in_width = torch.tensor(shard.in_width, dtype=torch.int32, device=device)
+        return program.to(device), in_width
 
     def plan(self) -> CompiledPlan:
         """The current compiled plan (compiling if stale) — inspectable:
@@ -297,8 +301,9 @@ class CircuitServer:
             )
 
         # Fuse per shard: slot k owns words [k*span, (k+1)*span).  Pad slots
-        # gather slot 0's genome but carry in_width=0, so their inputs are
-        # fully masked and their outputs never read.  Every shard's launch
+        # run slot 0's program with live = 0, so their inputs are fully
+        # masked and their outputs never read.  Each shard is one kernel
+        # launch (the slot gather is inside it), and every shard's launch
         # is enqueued before any output is read back.
         launches = []  # (shard_idx, span, items, out tensor)
         max_span = 0
@@ -315,26 +320,25 @@ class CircuitServer:
             for k, (_, packed, _, _) in enumerate(items):
                 x_buf[: packed.shape[0],
                       k * span: k * span + packed.shape[1]] = packed
-            slots = np.zeros(k_pad, np.int64)
-            slots[:k_active] = [it[0] for it in items]
-            live = (np.arange(k_pad) < k_active).astype(np.int32)
-            woff = np.arange(k_pad, dtype=np.int32) * span
-            opc, edge, outs, in_w = dev[shard.content_hash]
+            # launch slot k: its plan slot, word offset and live flag, one
+            # buffer; pad slots run slot 0 with live = 0 (inputs masked)
+            meta = np.zeros((3, k_pad), np.int32)
+            meta[0, :k_active] = [it[0] for it in items]
+            meta[1] = np.arange(k_pad) * span
+            meta[2, :k_active] = 1
+            program, in_w = dev[shard.content_hash]
             device = self.device_for(shard_idx)
             phase["pack"] += perf() - t1  # fused-buffer fill
             t1 = perf()
             with tracer.span("tick.device_put", cat="tick", shard=shard_idx):
                 x_dev = torch.from_numpy(x_buf.view(np.int32)).to(device)
-                slots_dev = torch.from_numpy(slots).to(device)
-                live_dev = torch.from_numpy(live).to(device)
-                woff_dev = torch.from_numpy(woff).to(device)
+                meta_dev = torch.from_numpy(meta).to(device)
             t2 = perf()
             with tracer.span("tick.launch", cat="tick", shard=shard_idx,
                              span_words=span, slots=k_active):
-                out = self._exec.eval_population_spans(
-                    opc[slots_dev], edge[slots_dev], outs[slots_dev],
-                    x_dev, woff_dev, in_w[slots_dev] * live_dev,
-                    span_words=span,
+                out = self._exec.eval_program_spans(
+                    program, x_dev, meta_dev[0], meta_dev[1], in_w,
+                    meta_dev[2], span_words=span,
                 )
             phase["device_put"] += t2 - t1
             phase["launch"] += perf() - t2

@@ -4,7 +4,9 @@ Marked ``cuda``: each test skips when no CUDA device is present (decided
 inside the fixture, never at import).  This file imports neither JAX nor
 the reference package, so it runs where only torch is installed.  Its
 shapes and problems are `chip_smoke.py`'s own, so the two on-card checks
-cannot drift apart:
+cannot drift apart.  The kernels run live-gate programs
+(`repro_torch.kernels.program`); each result is held to the genome-level
+plain version and to the program-level one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -12,9 +14,10 @@ import pytest
 import torch
 
 from chip_smoke import CHECK_SHAPES as SHAPES
-from chip_smoke import random_population, span_case
+from chip_smoke import corrupt_population, random_population, span_case, spans_by_genome
 from repro_torch.kernels import circuit_eval, ops
 from repro_torch.kernels import ref as TR
+from repro_torch.kernels.program import compile_program
 
 
 @pytest.fixture
@@ -24,10 +27,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(shape, seed):
+def _problem(shape, seed, make=random_population):
     """The kernel-check problem `chip_smoke.py` builds for ``shape``."""
     g = torch.Generator().manual_seed(seed)
-    return (*random_population(g, *shape), g)
+    return (*make(g, *shape), g)
+
+
+def _on(device, *ts):
+    return [t.to(device) for t in ts]
 
 
 @pytest.mark.cuda
@@ -36,24 +43,86 @@ def test_population_kernel_matches_plain(cuda, shape):
     opc, edge, outs, x, _ = _problem(shape, 0)
     want = TR.eval_population_packed(opc, edge, outs, x)
     before = circuit_eval.EVAL_POPULATION.launches
-    got = ops.eval_population(*(t.to(cuda) for t in (opc, edge, outs, x)))
+    got = ops.eval_population(*_on(cuda, opc, edge, outs, x))
     torch.cuda.synchronize()
     assert circuit_eval.EVAL_POPULATION.launches == before + 1
     assert torch.equal(got.cpu(), want)
 
 
+def _spans_args(shape, g):
+    n_in, _, _, pop, w = shape
+    slots, woff, iw, live, span = span_case(g, n_in, pop, w)
+    return (slots, woff, iw, live), span
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES)
 def test_spans_kernel_matches_plain(cuda, shape):
+    """Slot gather inside the kernel: repeats, a negative slot id, a pad
+    slot, mixed widths, misaligned / negative / off-the-end offsets."""
     opc, edge, outs, x, g = _problem(shape, 1)
-    n_in, _, _, pop, w = shape
-    woff, iw, span = span_case(g, n_in, pop, w)
-    want = TR.eval_population_spans_packed(opc, edge, outs, x, woff, iw, span_words=span)
+    (slots, woff, iw, live), span = _spans_args(shape, g)
+    want = spans_by_genome(opc, edge, outs, x, slots, woff, iw, live, span)
+    prog = compile_program(opc, edge, outs, shape[0])
+    assert torch.equal(TR.eval_program_spans(prog, x, slots, woff, iw, live,
+                                             span_words=span), want)
     before = circuit_eval.EVAL_POPULATION_SPANS.launches
-    got = ops.eval_population_spans(
-        *(t.to(cuda) for t in (opc, edge, outs, x, woff, iw)), span_words=span)
+    got = ops.eval_program_spans(prog.to(cuda), *_on(cuda, x, slots, woff, iw, live),
+                                 span_words=span)
     torch.cuda.synchronize()
     assert circuit_eval.EVAL_POPULATION_SPANS.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernels_match_plain_on_corrupt_genomes(cuda, shape):
+    """Negative, forward and past-the-end ids and opcodes outside the table
+    read what the reference reads, in both kernels."""
+    opc, edge, outs, x, g = _problem(shape, 2, corrupt_population)
+    prog = compile_program(opc, edge, outs, shape[0])
+    got = circuit_eval.eval_program(prog.to(cuda), x.to(cuda))
+    assert torch.equal(got.cpu(), TR.eval_population_packed(opc, edge, outs, x))
+    (slots, woff, iw, live), span = _spans_args(shape, g)
+    got = circuit_eval.eval_program_spans(prog.to(cuda), *_on(cuda, x, slots, woff, iw, live),
+                                          span_words=span)
+    want = spans_by_genome(opc, edge, outs, x, slots, woff, iw, live, span)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES[::3])
+def test_uncompacted_program_matches_plain(cuda, shape):
+    """The identity compaction (every gate kept) computes the same words."""
+    opc, edge, outs, x, _ = _problem(shape, 3)
+    full = compile_program(opc, edge, outs, shape[0], compact=False)
+    got = circuit_eval.eval_program(full.to(cuda), x.to(cuda))
+    assert torch.equal(got.cpu(), TR.eval_population_packed(opc, edge, outs, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [1, 2, 3, 4])
+def test_kernels_stage_from_misaligned_words(cuda, start):
+    """Words whose first element is not 16-byte aligned take the 4-byte
+    copies; an aligned start with a stride of 4k words the 16-byte ones."""
+    n_in, w = 12, 64
+    opc, edge, outs, _, g = _problem((n_in, 40, 2, 3, w), 4)
+    flat = torch.randint(-2**31, 2**31 - 1, (start + n_in * w,), generator=g,
+                         dtype=torch.int32)
+    x = flat[start:].view(n_in, w)
+    prog = compile_program(opc, edge, outs, n_in)
+    base = flat.to(cuda)
+    xd = base[start:].view(n_in, w)
+    assert xd.is_contiguous()
+    got = circuit_eval.eval_program(prog.to(cuda), xd)
+    assert torch.equal(got.cpu(), TR.eval_population_packed(opc, edge, outs, x))
+    slots = torch.tensor([2, 0, 1], dtype=torch.int32)
+    woff = torch.tensor([0, 16, 33], dtype=torch.int32)
+    iw = torch.tensor([n_in, 5, 0], dtype=torch.int32)
+    live = torch.ones(3, dtype=torch.int32)
+    got = circuit_eval.eval_program_spans(prog.to(cuda), xd, *_on(cuda, slots, woff, iw, live),
+                                          span_words=16)
+    want = spans_by_genome(opc, edge, outs, x, slots, woff, iw, live, 16)
     assert torch.equal(got.cpu(), want)
 
 
@@ -64,19 +133,20 @@ def test_spans_kernel_isolation(cuda):
     poisoned, clean = x.clone(), x.clone()
     poisoned[5:] = 0x5EADBEEF
     clean[5:] = 0
-    args = [t.to(cuda) for t in (opc, edge, outs)]
-    woff, iw = torch.zeros(1, dtype=torch.int32, device=cuda), torch.full(
-        (1,), 5, dtype=torch.int32, device=cuda)
-    a = circuit_eval.eval_population_spans(*args, poisoned.to(cuda), woff, iw, span_words=4)
-    b = circuit_eval.eval_population_spans(*args, clean.to(cuda), woff, iw, span_words=4)
+    prog = compile_program(opc, edge, outs, 8).to(cuda)
+    zero, one, five = (torch.full((1,), v, dtype=torch.int32, device=cuda) for v in (0, 1, 5))
+    a = circuit_eval.eval_program_spans(prog, poisoned.to(cuda), zero, zero, five, one,
+                                        span_words=4)
+    b = circuit_eval.eval_program_spans(prog, clean.to(cuda), zero, zero, five, one,
+                                        span_words=4)
     assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 def test_kernel_rejects_cpu_and_wrong_dtype(cuda):
     opc, edge, outs, x, _ = _problem((4, 10, 1, 1, 2), 3)
+    prog = compile_program(opc, edge, outs, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        circuit_eval.eval_population(opc.to(cuda), edge.to(cuda), outs, x.to(cuda))
+        circuit_eval.eval_program(prog, x.to(cuda))
     with pytest.raises(ValueError, match="int32"):
-        circuit_eval.eval_population(opc.to(cuda), edge.to(cuda), outs.to(cuda),
-                                     x.to(cuda, torch.int64))
+        circuit_eval.eval_program(prog.to(cuda), x.to(cuda, torch.int64))

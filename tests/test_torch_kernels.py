@@ -6,6 +6,8 @@ Pallas TPU kernels run in interpret mode, on genomes made by the
 reference.  The CUDA kernels themselves are compared with the plain
 versions on the card (`test_torch_cuda_kernels.py`, ``chip_smoke.py``).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from repro.runtime import PallasBackend
 from repro_torch import runtime
 from repro_torch.kernels import circuit_eval, ops
 from repro_torch.kernels import ref as TR
+from repro_torch.kernels.program import CircuitProgram, compile_program
 from tests.torch_parity import i32, u32
 
 # the reference's kernel sweep (tests/test_kernels.py)
@@ -152,15 +155,33 @@ def test_spans_isolation_edges_past_in_width_read_zeros():
     np.testing.assert_array_equal(outs_t[0], want)
 
 
-def test_out_of_contract_ids_read_zeros():
-    """Operand ids outside [0, I+i) and taps outside [0, I+n) read zero
-    words: a corrupt genome reads nothing but its own values."""
-    x = torch.full((2, 3), -1, dtype=torch.int32)              # all ones
-    opc = torch.tensor([[gates.BUF_A, gates.BUF_A]], dtype=torch.int32)
-    edge = torch.tensor([[[3, 0], [-1, 0]]], dtype=torch.int32)  # forward, negative
-    outs = torch.tensor([[2, 3, 4, 0]], dtype=torch.int32)       # 4 is past I+n
-    out = TR.eval_population_packed(opc, edge, outs, x)[0]
-    assert (out[:3] == 0).all() and (out[3] == -1).all()
+# I = 2, n = 2, two BUF_A gates: (edge_src, out_src) of the cases where the
+# reference's vals[id] wraps a negative id once and clamps into [0, I+n-1]
+OUT_OF_CONTRACT = {
+    "gate 1 reads -2": ([[0, 0], [-2, 0]], [3]),     # node 2
+    "tap 4": ([[1, 0], [0, 0]], [4]),                # clamped to node 3
+    "tap -1": ([[1, 0], [0, 0]], [-1]),              # node 3
+    "tap -9": ([[1, 0], [0, 0]], [-9]),              # clamped to input row 0
+    "forward operand": ([[3, 1], [2, 0]], [2, 3]),   # not yet written: zero
+}
+
+
+@pytest.mark.parametrize("case", list(OUT_OF_CONTRACT))
+def test_out_of_contract_ids_match_reference(case):
+    """Operand ids outside [0, I+i) and taps outside [0, I+n) read what the
+    reference reads, in the genome-level plain version and the program."""
+    edge, taps = OUT_OF_CONTRACT[case]
+    opc = np.full((1, 2), gates.BUF_A, np.int32)
+    edge, taps = np.asarray([edge], np.int32), np.asarray([taps], np.int32)
+    rng = np.random.RandomState(0)
+    for xw in (np.full((2, 3), 0xFFFFFFFF, np.uint32),
+               rng.randint(0, 2**32, (2, 3), dtype=np.uint64).astype(np.uint32)):
+        want = np.asarray(RR.eval_population_packed(
+            jnp.asarray(opc), jnp.asarray(edge), jnp.asarray(taps), jnp.asarray(xw)))
+        got = TR.eval_population_packed(*_port(opc, edge, taps, xw))
+        np.testing.assert_array_equal(u32(got), want)
+        prog = compile_program(opc, edge, taps, 2)
+        np.testing.assert_array_equal(u32(TR.eval_program(prog, i32(xw))), want)
 
 
 @pytest.mark.parametrize("case", [0, 5])
@@ -209,28 +230,54 @@ def test_cuda_backend_raises_on_cpu_tensors():
     assert [k.launches for k in circuit_eval.KERNELS] == before
 
 
+def _program_of(n_gates, n_outputs, n_rows=0, pop=1, n_inputs=4, dtype=torch.int32):
+    z = functools.partial(torch.zeros, dtype=dtype)
+    return CircuitProgram(z((pop, n_gates, 3)), z(pop), z((pop, n_rows)), z(pop),
+                          z((pop, n_outputs)), n_inputs)
+
+
 def test_wrapper_checks_dtype_and_shape_before_anything_else():
-    with pytest.raises(ValueError):
-        circuit_eval.eval_population(
-            torch.zeros((1, 4), dtype=torch.int64), torch.zeros((1, 4, 2), dtype=torch.int32),
-            torch.zeros((1, 1), dtype=torch.int32), torch.zeros((3, 8), dtype=torch.int32))
-    with pytest.raises(ValueError):
-        circuit_eval.eval_population(
-            torch.zeros((1, 4), dtype=torch.int32), torch.zeros((1, 4), dtype=torch.int32),
-            torch.zeros((1, 1), dtype=torch.int32), torch.zeros(8, dtype=torch.int32))
+    before = [k.launches for k in circuit_eval.KERNELS]
+    with pytest.raises(ValueError):  # an int64 program
+        circuit_eval.eval_program(_program_of(4, 1, dtype=torch.int64),
+                                  torch.zeros((4, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):  # 1-D words
+        circuit_eval.eval_program(_program_of(4, 1), torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError):  # genome arrays instead of a program
+        circuit_eval.eval_program(torch.zeros((1, 4), dtype=torch.int32),
+                                  torch.zeros((4, 8), dtype=torch.int32))
+    assert [k.launches for k in circuit_eval.KERNELS] == before
 
 
+# n live gates (no staged rows), o taps: the table is [n+1][T]
 @pytest.mark.parametrize("n,o,want", [(10, 1, 128), (300, 1, 128), (400, 4, 128),
                                       (1000, 2, 32), (1600, 2, 32)])
 def test_threads_per_block_fits_shared_memory(n, o, want):
-    t = circuit_eval.threads_per_block(n, o)
+    t = circuit_eval.threads_per_block(_program_of(n, o), words=1 << 20, circuits=1)
     assert t == want and t % 32 == 0
-    assert 4 * (n * t + 3 * n + o) <= circuit_eval.MAX_SMEM_BYTES
+    assert circuit_eval.smem_bytes(n + 1, n, o, t) <= circuit_eval.MAX_SMEM_BYTES
+    assert 4 * ((n + 1) * t + n + o) <= circuit_eval.MAX_SMEM_BYTES
 
 
 def test_threads_per_block_rejects_circuits_too_large():
     with pytest.raises(ValueError, match="does not fit"):
-        circuit_eval.threads_per_block(1800, 1)
+        circuit_eval.threads_per_block(_program_of(1800, 1), words=64, circuits=1)
+    with pytest.raises(ValueError, match="does not fit"):
+        circuit_eval.threads_per_block(_program_of(900, 1, n_rows=900), words=64,
+                                       circuits=1)
+
+
+# (words, circuits, want): the largest T that still gives 2 CTAs per SM
+@pytest.mark.parametrize("words,circuits,want", [
+    (3065, 1, 32),         # golden higgs predict: 96 CTAs at most
+    (256, 12, 32),         # the smoke tick: 12 slots x 256 words
+    (32768, 1, 64),        # 512 CTAs of 64 words; 256 of 128 would be too few
+    (32768, 4, 128),
+    (1, 1, 32),
+])
+def test_threads_per_block_fills_the_card(words, circuits, want):
+    prog = _program_of(7, 1, n_rows=8)
+    assert circuit_eval.threads_per_block(prog, words, circuits) == want
 
 
 def test_backend_registry_and_capabilities():
