@@ -18,6 +18,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 slot gather (repeats, a negative slot id, a pad slot),
                 mixed widths, misaligned / negative / off-the-end offsets,
                 and the isolation case.
+                The fit shape: λ = 4 mutated children of a 300-gate genome
+                over 116 input rows at W = 2,452 and a misaligned W.
   3. predict  — the reference-fitted golden bundles (tests/torch_golden/)
                 predict every row of their datasets through
                 `ServableCircuit.predict` on the card; the class ids must
@@ -29,16 +31,32 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 result must equal the tenant's `predict` on the card (the
                 golden tenants: the committed ids) and each tick must make
                 one launch per shard with work.
-  5. timing   — each kernel at its main-path shape, on the live-gate
-                program and on the uncompacted one (every gate kept),
-                beside its plain version and its bound.
-  6. sweep    — the golden higgs program over W = 32 … 32,768 words.
-  7. profile  — one tick under `torch.profiler`: the device work it
+  5. fit      — `AutoTinyClassifier(n_gates=300, λ=4, κ=300, G=2000)` over
+                the four default encodings on higgs (98,050 rows, 80/20
+                train/test split: W = 2,452 words of training rows), on
+                the card.  Per encoding: generations, generations/s, best
+                val and train fitness, and the mean host ms of each phase
+                of a generation.  eval_population must launch exactly
+                Σ(generations + 1) times; the fitted classifier's predict
+                on the test rows must equal the plain version's ids, and
+                its saved bundle must reload and predict the same ids.
+  6. fit_parity — one encoding (quantile, 4 bits), 200 generations, run
+                through the kernel and through the plain versions on the
+                card from the same seed: the trajectories must be
+                identical (history, generation count, best fitness and
+                genome, parent).
+  7. timing   — each kernel at its main-path shapes (eval_population at
+                the golden predict and at the fit's λ children), on the
+                live-gate program and on the uncompacted one (every gate
+                kept), beside its plain version and its bound.
+  8. sweep    — the golden higgs program over W = 32 … 32,768 words.
+  9. profile  — one tick under `torch.profiler`: the device work it
                 launches (one spans kernel per shard and copies, nothing
                 else) and the device's busy share of the tick.
 
-Launch counts are set to 0 just before each main-path phase (3 and 4) and
-read just after; a kernel of the path that did not launch fails the run.
+Launch counts are set to 0 just before each main-path phase (3, 4 and 5:
+the fit, then the fitted classifier's predict) and read just after; a
+kernel of the path that did not launch fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -64,10 +82,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import encoding as E  # noqa: E402
-from repro_torch.core.api import ServableCircuit, load_servable  # noqa: E402
-from repro_torch.core.gates import BUF_A, NOT_A  # noqa: E402
+from repro_torch.core import fitness as F  # noqa: E402
+from repro_torch.core.api import (  # noqa: E402
+    DEFAULT_ENCODINGS, AutoTinyClassifier, ServableCircuit, load_servable, save_servable)
+from repro_torch.core.evolve import (  # noqa: E402
+    EvolveConfig, evolve_with_history, make_eval_fn)
+from repro_torch.core.gates import BUF_A, FULL_FS, NOT_A  # noqa: E402
 from repro_torch.core.genome import CircuitSpec, init_genome, opcodes  # noqa: E402
-from repro_torch.data import load_dataset  # noqa: E402
+from repro_torch.core.mutate import mutate_children  # noqa: E402
+from repro_torch.data import load_dataset, train_test_split  # noqa: E402
 from repro_torch.kernels import circuit_eval  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels.program import compile_program  # noqa: E402
@@ -89,6 +112,12 @@ CHECK_SHAPES = [(4, 10, 1, 1, 2), (8, 50, 1, 4, 11), (16, 100, 2, 5, 32),
                 (32, 300, 4, 3, 128), (100, 300, 2, 2, 313), (6, 17, 3, 7, 1),
                 (116, 300, 1, 1, 3065), (476, 300, 1, 3, 700),
                 (32, 400, 4, 3, 129)]
+# the fit path: λ children of a 300-gate genome over the higgs training
+# rows at 4 bits per input (I = 29 x 4), at its W and a misaligned W
+FIT_CHECK = (116, 300, 1, 4)  # (inputs, gates, outputs, population)
+FIT_CHECK_WORDS = (2452, 2453)
+FIT_KW = dict(n_gates=300, lam=4, kappa=300, max_gens=2000, seed=SEED)
+PARITY_GENS = 200
 
 
 class SmokeFailure(RuntimeError):
@@ -112,6 +141,10 @@ def gpu_line() -> str:
     return out[0]
 
 
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in circuit_eval.KERNELS}
+
+
 def to_dev(*ts):
     return [t.to(DEVICE) for t in ts]
 
@@ -133,6 +166,19 @@ def random_population(g, n_in, n, n_out, pop, w):
     outs = torch.stack([x.out_src for x in gs])
     x = torch.randint(-2**31, 2**31 - 1, (n_in, w), generator=g, dtype=torch.int32)
     return opc, edge, outs, x
+
+
+def fit_population(g, n_in, n, n_out, pop, w):
+    """λ = pop children of a random genome (the full gate set), as the fit
+    path makes them: half at the search's rate 1/n, half at 0.05, beside
+    random words."""
+    spec = CircuitSpec(n_in, n, n_out, FULL_FS)
+    parent = init_genome(g, spec)
+    kids = [mutate_children(g, parent, spec, rate, k)
+            for rate, k in ((1 / n, pop - pop // 2), (0.05, pop // 2)) if k]
+    gate_fn, edge, outs = (torch.cat(parts) for parts in zip(*kids))
+    x = torch.randint(-2**31, 2**31 - 1, (n_in, w), generator=g, dtype=torch.int32)
+    return spec.fn_table()[gate_fn.long()], edge, outs, x
 
 
 def corrupt_population(g, n_in, n, n_out, pop, w):
@@ -239,6 +285,17 @@ def phase_kernel_checks() -> dict:
                        spans_by_genome(opc, edge, outs, x, slots, woff, iw, live, span),
                        plain.eval_program_spans(prog, x, slots, woff, iw, live,
                                                 span_words=span))
+    # the fit path's shape: λ mutated children over the training words
+    fit_bad = 0
+    for w in FIT_CHECK_WORDS:
+        n_in = FIT_CHECK[0]
+        opc, edge, outs, x = to_dev(*fit_population(g, *FIT_CHECK, w))
+        prog = compile_program(opc, edge, outs, n_in).to(DEVICE)
+        before = stats["eval_population"][1] + stats["eval_population"][2]
+        check_pair(stats, "eval_population", circuit_eval.eval_program(prog, x),
+                   plain.eval_population_packed(opc, edge, outs, x),
+                   plain.eval_program(prog, x))
+        fit_bad += stats["eval_population"][1] + stats["eval_population"][2] - before
     # isolation: rows past in_width are invisible even to edges that read them
     opc, edge, outs, x = to_dev(*random_population(g, 8, 10, 2, 1, 4))
     prog = compile_program(opc, edge, outs, 8).to(DEVICE)
@@ -250,7 +307,9 @@ def phase_kernel_checks() -> dict:
     b = circuit_eval.eval_program_spans(prog, clean, zero, zero, five, one, span_words=4)
     bad, _ = mismatch(a, b)
     stats["eval_population_spans"][1] += bad
-    out = {"phase": "kernels", "isolation_mismatches": bad}
+    out = {"phase": "kernels", "isolation_mismatches": bad,
+           "fit_shape": {"shape": dict(zip(("I", "n", "O", "P"), FIT_CHECK)),
+                         "words": FIT_CHECK_WORDS, "mismatches": fit_bad}}
     for name, (cases, bad_g, bad_p, err) in stats.items():
         out[name] = {"cases": cases, "mismatches_vs_genome": bad_g,
                      "mismatches_vs_program": bad_p, "max_abs_err": err}
@@ -279,7 +338,7 @@ def phase_predict(gold) -> dict:
         t0 = time.perf_counter()
         results[name] = sc.predict(ds.x, device=DEVICE)
         results[name + "_s"] = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in circuit_eval.KERNELS}
+    launches = launch_counts()
     out = {"phase": "predict", "launches": launches}
     for name, (sc, ds, ids) in gold.items():
         got = results[name]
@@ -358,7 +417,7 @@ def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple:
             t0 = time.perf_counter()
             report = server.tick()
             tick_s = time.perf_counter() - t0
-            counts = {k.name: k.launches for k in circuit_eval.KERNELS}
+            counts = launch_counts()
             for k, v in counts.items():
                 total[k] += v
             seen = {t: 0 for t in tenants}
@@ -394,6 +453,107 @@ def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple:
 
 
 # -- phase 5 ----------------------------------------------------------------
+def higgs_split():
+    """higgs (98,050 rows), split 80/20 by the port's `train_test_split`."""
+    ds = load_dataset("higgs")
+    return (ds, *train_test_split(ds, 0.2, seed=SEED))
+
+
+def phase_fit(gold, split) -> dict:
+    """`AutoTinyClassifier.fit` → `predict` on the card; returns the
+    eval_population launches of each (fit, then the fitted predict)."""
+    ds, tr, te = split
+    circuit_eval.reset_launch_counts()
+    t0 = time.perf_counter()
+    clf = AutoTinyClassifier(encodings=DEFAULT_ENCODINGS, **FIT_KW).fit(tr.x, tr.y, ds.n_classes)
+    fit_s = time.perf_counter() - t0
+    fit_launches = launch_counts()
+    circuit_eval.reset_launch_counts()
+    ids = clf.predict(te.x)
+    predict_launches = launch_counts()
+    evals = sum(r.generations + 1 for r in clf.records_)
+    out = {"phase": "fit", "rows": {"train": len(tr.y), "test": len(te.y)},
+           "words": E.n_words(len(tr.y)), "fit_s": fit_s,
+           "launches": fit_launches, "predict_launches": predict_launches,
+           "evaluations": evals, "encodings": []}
+    for r in clf.records_:
+        out["encodings"].append({
+            "encoding": f"{r.encoding.strategy}/{r.encoding.bits}",
+            "inputs": tr.x.shape[1] * r.encoding.bits, "generations": r.generations,
+            "search_s": r.search_s, "gens_per_s": r.generations / r.search_s,
+            "best_val": r.val_fitness, "best_train": r.train_fitness,
+            "phase_ms": r.clock.mean_ms(), "phase_laps": r.clock.laps})
+    # the fitted classifier: kernel against the plain version on the card,
+    # its bundle, and its held-out balanced accuracy beside the golden one
+    sc = clf.to_servable()
+    plain_ids = sc.predict(te.x, device="cpu")  # the plain version
+    os.makedirs(os.path.join(ROOT, "build", "chip_smoke"), exist_ok=True)
+    path = save_servable(sc, os.path.join(ROOT, "build", "chip_smoke", "higgs_fit"))
+    back_ids = load_servable(path).predict(te.x, device=DEVICE)
+    gold_ids = gold["higgs"][0].predict(te.x, device=DEVICE)
+    every = np.ones(len(te.y), bool)
+    out["predict"] = {
+        "rows": len(te.y), "mismatches_vs_plain": int((ids != plain_ids).sum()),
+        "bundle_mismatches": int((back_ids != ids).sum()),
+        "test_balanced_accuracy": F.balanced_accuracy_rows(ids, te.y, every, ds.n_classes),
+        "golden_test_balanced_accuracy": F.balanced_accuracy_rows(gold_ids, te.y, every,
+                                                                  ds.n_classes),
+        "encoding": f"{clf.encoder_.strategy}/{clf.encoder_.bits}"}
+    emit(out)
+    check(fit_launches["eval_population"] == evals,
+          f"fit: {fit_launches['eval_population']} eval_population launches for "
+          f"{evals} evaluations (Σ generations + 1)")
+    check(fit_launches["eval_population_spans"] == 0, "the fit launched the spans kernel")
+    check(predict_launches["eval_population"] == 1, "the fitted predict did not launch once")
+    check(ids.shape == (len(te.y),) and out["predict"]["mismatches_vs_plain"] == 0,
+          "fitted predict differs from the plain version")
+    check(out["predict"]["bundle_mismatches"] == 0, "the reloaded bundle predicts other ids")
+    return {"fit": fit_launches["eval_population"],
+            "fit_predict": predict_launches["eval_population"]}
+
+
+# -- phase 6 ----------------------------------------------------------------
+def parity_search(split, backend: str):
+    """The fit's first search at one encoding (quantile, 4 bits), set up as
+    `fit` sets it up (generator seed·1000, split seed), for PARITY_GENS
+    generations with history, through ``backend`` on the card."""
+    ds, tr, _ = split
+    enc = E.fit_encoder(tr.x, E.EncodingConfig("quantile", 4))
+    bits = E.encode(enc, tr.x)
+    data = E.pack_dataset(bits, tr.y, ds.n_classes, device=DEVICE)
+    masks = E.split_masks(len(tr.y), data.x_words.shape[1], 0.5, SEED, device=DEVICE)
+    spec = CircuitSpec(bits.shape[1], FIT_KW["n_gates"], data.n_outputs, FULL_FS)
+    cfg = EvolveConfig(lam=FIT_KW["lam"], kappa=FIT_KW["kappa"], max_gens=PARITY_GENS)
+    eval_fn = make_eval_fn(spec, data, *masks, backend)
+    t0 = time.perf_counter()
+    final, hist = evolve_with_history(torch.Generator().manual_seed(SEED * 1000), spec,
+                                      cfg, eval_fn)
+    return final, hist, eval_fn, time.perf_counter() - t0
+
+
+def phase_fit_parity(split):
+    """The same search through the kernel and through the plain versions:
+    every draw comes from the same CPU generator and every fitness is
+    bitwise, so the trajectories must be identical.  Returns the kernel
+    run's eval function and final state (the fit's timing case)."""
+    runs = {b: parity_search(split, b) for b in ("cuda", "torch-ref")}
+    (fk, hk, ek, sk), (fp, hp, _, sp) = runs["cuda"], runs["torch-ref"]
+    same = {"history": all(np.array_equal(a, b) for a, b in zip(hk, hp)),
+            "gen": int(fk.gen) == int(fp.gen),
+            "best_val": fk.best_val.tobytes() == fp.best_val.tobytes(),
+            "best_train": fk.best_train.tobytes() == fp.best_train.tobytes(),
+            "best_genome": all(torch.equal(a, b) for a, b in zip(fk.best, fp.best)),
+            "parent": all(torch.equal(a, b) for a, b in zip(fk.parent, fp.parent))}
+    emit({"phase": "fit_parity", "generations": int(fk.gen), "same": same,
+          "kernel_s": sk, "plain_s": sp, "best_val": float(fk.best_val),
+          "kernel_phase_ms": ek.clock.mean_ms(),
+          "plain_phase_ms": runs["torch-ref"][2].clock.mean_ms()})
+    check(int(fk.gen) == PARITY_GENS, f"parity search stopped at {fk.gen}")
+    check(all(same.values()), f"kernel and plain trajectories differ: {same}")
+    return ek, fk
+
+
+# -- phase 7 ----------------------------------------------------------------
 def device_ms(fn, reps=30) -> float:
     """Median device time of one call by CUDA events, with the queue held
     back (a sleep kernel) so host overhead does not land between events."""
@@ -459,22 +619,28 @@ def launch_floor_ms() -> float:
     return device_ms(one.zero_)
 
 
-def kernel_entry(kernel, checks, launches, shape, fn, full_fn, plain_fn, nbytes, ops,
-                 live_gates, rows_read, threads) -> dict:
-    ms = device_ms(fn)
-    b_ms, b_by = bound(nbytes, ops)
+def kernel_entry(kernel, checks, launches, timing: dict) -> dict:
+    """One kernel's line: what it replaces, its checks, its main-path
+    launches and its `timing` at its main-path shape."""
     return {
         "name": kernel.name, "route": "cuda",
         "source": "src/repro_torch/csrc/circuit_eval.cu",
         "replaces": kernel.replaces, "launches": launches,
         "max_abs_err": checks["max_abs_err"], "mismatches": checks["mismatches"],
-        "shape": shape, "threads": threads, "ms": ms, "kernel_ms": ms,
-        "uncompacted_ms": device_ms(full_fn),
-        "kernel_wall_ms": wall_ms(fn, reps=20), "plain_ms": wall_ms(plain_fn),
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
-        "live_gates": live_gates, "input_rows_read": rows_read,
+        **timing, "kernel_ms": timing["ms"],
         "launch_floor_ms": launch_floor_ms(), "library_ms": None,
     }
+
+
+def timing(shape, threads, fn, full_fn, plain_fn, nbytes, ops, live_gates, rows_read) -> dict:
+    """A kernel call timed on the card (live and uncompacted program, its
+    wall time with a synchronize) beside its plain version and its bound."""
+    b_ms, b_by = bound(nbytes, ops)
+    return {"shape": shape, "threads": threads, "ms": device_ms(fn),
+            "uncompacted_ms": device_ms(full_fn), "kernel_wall_ms": wall_ms(fn, reps=20),
+            "plain_ms": wall_ms(plain_fn), "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "ops": ops, "live_gates": live_gates,
+            "input_rows_read": rows_read}
 
 
 def golden_predict_case(gold, w=None):
@@ -493,21 +659,31 @@ def golden_predict_case(gold, w=None):
     return genome, x.to(DEVICE)
 
 
-def predict_bound(genome, n_in, w) -> tuple:
-    """(bytes, ops, live gates, rows read) one program eval over w words
-    needs: the live gates' genome, the input rows they read once each, and
-    the output words."""
+def fit_case(fit_parity_case):
+    """The fit's eval: λ children of the parity search's final parent (its
+    rate, 1/n) and that search's training words on the card (W = 2,452)."""
+    eval_fn, final = fit_parity_case
+    spec = eval_fn.spec
+    g = torch.Generator().manual_seed(SEED + 4)
+    kids = mutate_children(g, final.parent, spec, 1 / spec.n_nodes, FIT_KW["lam"])
+    return (opcodes(kids, spec), kids.edge_src, kids.out_src), eval_fn.data.x_words
+
+
+def program_bound(genome, n_in, w) -> tuple:
+    """(bytes, ops, [(live gates, rows read)] per circuit) that one program
+    eval of P circuits over w words needs: per circuit, its live gates'
+    genome, the input rows they read once each, and its output words."""
     opc, edge, outs = genome
-    n_out = outs.shape[1]
-    live, rows = live_work(opc[0], edge[0], outs[0], n_in, n_in)
-    return 4 * (3 * live + n_out + rows * w + n_out * w), live * w, live, rows
+    pop, n_out = outs.shape
+    work = [live_work(opc[p], edge[p], outs[p], n_in, n_in) for p in range(pop)]
+    live, rows = sum(a for a, _ in work), sum(r for _, r in work)
+    return 4 * (3 * live + pop * n_out + rows * w + pop * n_out * w), live * w, work
 
 
-def phase_timing(gold, checks, predict_launches, serve_launches, timing_case) -> list:
-    entries = []
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # eval_population at the golden higgs predict shape (P = 1)
-    genome, x = golden_predict_case(gold)
+def population_timing(genome, x, what: str, sms: int) -> dict:
+    """eval_population over ``genome``'s P circuits and words ``x`` on the
+    card, held to the genome-level plain version (live and uncompacted
+    program), then timed."""
     n_in, w = x.shape
     host = compile_program(*genome, n_in)
     prog = host.to(DEVICE)
@@ -515,21 +691,35 @@ def phase_timing(gold, checks, predict_launches, serve_launches, timing_case) ->
     for p in (prog, full):
         bad, _ = mismatch(circuit_eval.eval_program(p, x),
                           plain.eval_population_packed(*to_dev(*genome), x))
-        check(bad == 0, "eval_population differs from plain at the predict shape")
-    nbytes, ops, live, rows = predict_bound(genome, n_in, w)
+        check(bad == 0, f"eval_population differs from plain at the {what} shape")
+    nbytes, ops, work = program_bound(genome, n_in, w)
     # the bound's own count of the work guards the compiler's
-    check((live, rows) == (int(host.n_live.sum()), int(host.n_rows.sum())),
-          f"predict: live_work counts {live} gates, {rows} rows; the program "
-          f"{host.n_live.tolist()} and {host.n_rows.tolist()}")
-    entries.append(kernel_entry(
-        circuit_eval.EVAL_POPULATION, checks["eval_population"],
-        predict_launches["eval_population"],
-        {"P": 1, "I": n_in, "n": genome[0].shape[1], "O": genome[2].shape[1], "W": w,
+    check(work == list(zip(host.n_live.tolist(), host.n_rows.tolist())),
+          f"{what}: live_work counts {work}; the program {host.n_live.tolist()} gates "
+          f"and {host.n_rows.tolist()} rows")
+    pop = genome[0].shape[0]
+    return timing(
+        {"P": pop, "I": n_in, "n": genome[0].shape[1], "O": genome[2].shape[1], "W": w,
          "R": prog.n_rows_max, "L": prog.n_gates},
+        circuit_eval.threads_per_block(prog, w, pop, sms),
         lambda: circuit_eval.eval_program(prog, x),
         lambda: circuit_eval.eval_program(full, x),
-        lambda: plain.eval_program(prog, x), nbytes, ops, live, rows,
-        circuit_eval.threads_per_block(prog, w, 1, sms)))
+        lambda: plain.eval_program(prog, x), nbytes, ops,
+        sum(a for a, _ in work), sum(r for _, r in work))
+
+
+def phase_timing(gold, checks, population_launches, serve_launches, timing_case,
+                 fit_parity_case) -> list:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # eval_population at the golden higgs predict (P = 1) and at the fit's
+    # λ children (P = 4); its launches are those of every main path
+    entry = kernel_entry(circuit_eval.EVAL_POPULATION, checks["eval_population"],
+                         sum(population_launches.values()),
+                         population_timing(*golden_predict_case(gold), "predict", sms))
+    entry["launches_by_path"] = population_launches
+    entry["fit"] = population_timing(*fit_case(fit_parity_case), "fit", sms)
+    entry["fit"]["launches"] = population_launches["fit"]
+    entries = [entry]
     # spans at the one-shard tick's shape: every slot live, back-to-back spans
     shard, span = timing_case
     k = shard.n_slots
@@ -562,22 +752,23 @@ def phase_timing(gold, checks, predict_launches, serve_launches, timing_case) ->
           f"and {staged} rows below the widths")
     live, rows = sum(a for a, _ in work), sum(r for _, r in work)
     nbytes = 4 * (3 * live + k * (n_out + 2) + rows * span + k * n_out * span)
-    ops = live * span
     entries.append(kernel_entry(
         circuit_eval.EVAL_POPULATION_SPANS, checks["eval_population_spans"],
-        serve_launches["eval_population_spans"],
-        {"P": k, "I_max": i_max, "n": n, "O": n_out, "span_words": span,
-         "W_total": k * span, "R": prog.n_rows_max, "L": prog.n_gates},
-        lambda: circuit_eval.eval_program_spans(prog, x, slots, woff, iw, live_k,
-                                                span_words=span),
-        lambda: circuit_eval.eval_program_spans(full, x, slots, woff, iw, live_k,
-                                                span_words=span),
-        lambda: plain.eval_program_spans(prog, x, slots, woff, iw, live_k,
-                                         span_words=span),
-        nbytes, ops, live, rows, circuit_eval.threads_per_block(prog, span, k, sms)))
+        serve_launches["eval_population_spans"], timing(
+            {"P": k, "I_max": i_max, "n": n, "O": n_out, "span_words": span,
+             "W_total": k * span, "R": prog.n_rows_max, "L": prog.n_gates},
+            circuit_eval.threads_per_block(prog, span, k, sms),
+            lambda: circuit_eval.eval_program_spans(prog, x, slots, woff, iw, live_k,
+                                                    span_words=span),
+            lambda: circuit_eval.eval_program_spans(full, x, slots, woff, iw, live_k,
+                                                    span_words=span),
+            lambda: plain.eval_program_spans(prog, x, slots, woff, iw, live_k,
+                                             span_words=span),
+            nbytes, live * span, live, rows)))
     return entries
 
 
+# -- phase 8 ----------------------------------------------------------------
 def phase_sweep(gold, widths=(32, 256, 3065, 32768)) -> dict:
     """The golden higgs program over W words: kernel time against W, live
     and uncompacted, beside the bound."""
@@ -591,17 +782,19 @@ def phase_sweep(gold, widths=(32, 256, 3065, 32768)) -> dict:
         bad, _ = mismatch(circuit_eval.eval_program(prog, x),
                           circuit_eval.eval_program(full, x))
         check(bad == 0, f"sweep W={w}: the live and the full program disagree")
-        nbytes, ops, live, rows = predict_bound(genome, n_in, w)
+        nbytes, ops, work = program_bound(genome, n_in, w)
         b_ms, b_by = bound(nbytes, ops)
         out["points"].append({
             "W": w, "ms": device_ms(lambda: circuit_eval.eval_program(prog, x)),
             "uncompacted_ms": device_ms(lambda: circuit_eval.eval_program(full, x)),
-            "bound_ms": b_ms, "bound_by": b_by, "live_gates": live, "n": genome[0].shape[1],
+            "bound_ms": b_ms, "bound_by": b_by, "live_gates": work[0][0],
+            "n": genome[0].shape[1],
         })
     emit(out)
     return out
 
 
+# -- phase 9 ----------------------------------------------------------------
 def phase_profile(profile_case) -> dict:
     """One one-shard tick under `torch.profiler`: the device work it
     launches and the device's busy share of the tick."""
@@ -701,11 +894,18 @@ def main() -> int:
     gold = golden()
     predict_launches = phase_predict(gold)
     serve_launches, timing_case, profile_case = phase_serve(gold)
-    entries = phase_timing(gold, checks, predict_launches, serve_launches, timing_case)
+    split = higgs_split()
+    population_launches = {"predict": predict_launches["eval_population"],
+                           **phase_fit(gold, split)}
+    fit_parity_case = phase_fit_parity(split)
+    entries = phase_timing(gold, checks, population_launches, serve_launches, timing_case,
+                           fit_parity_case)
     phase_sweep(gold)
     phase_profile(profile_case)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
+    check(all(v > 0 for v in population_launches.values()),
+          f"eval_population was not launched on every path: {population_launches}")
     emit({"kernels": entries})
     print(gpu_line(), flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",

@@ -1,4 +1,10 @@
-"""ServableCircuit: the deployable inference artifact, and its bundles.
+"""AutoTinyClassifier, the deployable `ServableCircuit`, and its bundles.
+
+`AutoTinyClassifier.fit(X, y)` is the toolflow of Fig. 7: for each
+candidate encoding (strategy, bits per input) fit the encoder on the
+training rows, pack the bits onto the device, split train/val rows (§3.3),
+run the 1+λ search (`core/evolve.py`), and keep the circuit with the best
+validation fitness across encodings (§5.2).
 
 A `ServableCircuit` is a fitted genome plus everything needed to run it on
 raw float features (fitted encoder, class count).  Bundles use the
@@ -12,13 +18,18 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import runtime
 from repro_torch.core import encoding as E
-from repro_torch.core.genome import CircuitSpec, Genome, opcodes
+from repro_torch.core import fitness as F
+from repro_torch.core import gates
+from repro_torch.core.evolve import EvolveConfig, PhaseClock, evolve, make_eval_fn
+from repro_torch.core.genome import CircuitSpec, Genome, genome_from_arrays, opcodes
 from repro_torch.kernels.program import CircuitProgram, compile_program
 
 # On-disk bundle format (the reference's).  Version history:
@@ -148,12 +159,7 @@ def servable_from_arrays(
         fn_set=tuple(int(op) for op in meta["spec"]["fn_set"]),
     )
 
-    def i32(key: str) -> torch.Tensor:
-        return torch.from_numpy(np.array(arrays[key], dtype=np.int32))
-
-    genome = Genome(
-        gate_fn=i32("gate_fn"), edge_src=i32("edge_src"), out_src=i32("out_src")
-    )
+    genome = genome_from_arrays(arrays["gate_fn"], arrays["edge_src"], arrays["out_src"])
     encoder = E.Encoder(
         thresholds=np.asarray(arrays["enc_thresholds"], np.float32),
         codes=np.asarray(arrays["enc_codes"], np.uint8),
@@ -226,3 +232,141 @@ def load_servable(path: str) -> ServableCircuit:
             )
         arrays = {k: z[k] for k in z.files if k != "meta"}
     return servable_from_arrays(arrays, meta)
+
+
+# ---------------------------------------------------------------------------
+# The end-to-end toolflow
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FitRecord:
+    encoding: E.EncodingConfig
+    val_fitness: float
+    train_fitness: float
+    generations: int
+    # wall seconds of this encoding's search, and its host seconds per
+    # phase (`PhaseClock`)
+    search_s: float = 0.0
+    clock: PhaseClock = dataclasses.field(default_factory=PhaseClock, repr=False)
+
+
+DEFAULT_ENCODINGS = (
+    E.EncodingConfig("quantize", 2),
+    E.EncodingConfig("quantize", 4),
+    E.EncodingConfig("quantile", 2),
+    E.EncodingConfig("quantile", 4),
+)
+
+
+class AutoTinyClassifier:
+    """Fit a tiny classifier circuit to tabular rows, then predict.
+
+    ``device=None`` runs the search and ``predict`` on the card through
+    the CUDA kernel (and raises without one); ``device="cpu"`` runs the
+    plain versions on the CPU."""
+
+    def __init__(
+        self,
+        n_gates: int = 300,
+        fn_set: str | tuple[int, ...] = "full",
+        encodings: Sequence[E.EncodingConfig] = DEFAULT_ENCODINGS,
+        lam: int = 4,
+        p: float | None = None,
+        gamma: float = 0.01,
+        kappa: int = 300,
+        max_gens: int = 8000,
+        n_out_bits: int | None = None,
+        val_fraction: float = 0.5,
+        seed: int = 0,
+        device: "str | torch.device | None" = None,
+    ):
+        self.device = runtime.resolve_device(device)
+        self.fn_set = gates.FUNCTION_SETS[fn_set] if isinstance(fn_set, str) else fn_set
+        self.n_gates = n_gates
+        self.encodings = tuple(encodings)
+        self.cfg = EvolveConfig(
+            lam=lam, p=p, gamma=gamma, kappa=kappa, max_gens=max_gens,
+        )
+        self.n_out_bits = n_out_bits
+        self.val_fraction = val_fraction
+        self.seed = seed
+        # fitted state
+        self.spec_: CircuitSpec | None = None
+        self.genome_: Genome | None = None
+        self.encoder_: E.Encoder | None = None
+        self.n_classes_: int | None = None
+        self.ref_stats_: np.ndarray | None = None
+        self.records_: list[FitRecord] = []
+
+    # ------------------------------------------------------------------
+    def fit(self, x: np.ndarray, y: np.ndarray, n_classes: int | None = None):
+        x = np.asarray(x, np.float32)
+        y = np.asarray(y, np.int64)
+        self.n_classes_ = n_classes or int(y.max()) + 1
+        n_out = self.n_out_bits or max(
+            1, int(np.ceil(np.log2(max(self.n_classes_, 2))))
+        )
+        best = None
+        self.records_ = []
+        for ei, ecfg in enumerate(self.encodings):
+            enc = E.fit_encoder(x, ecfg)
+            bits = E.encode(enc, x)
+            data = E.pack_dataset(bits, y, self.n_classes_, n_out, device=self.device)
+            w = data.x_words.shape[1]
+            mtr, mva = E.split_masks(
+                x.shape[0], w, self.val_fraction, seed=self.seed + ei,
+                device=self.device,
+            )
+            spec = CircuitSpec(
+                n_inputs=bits.shape[1], n_nodes=self.n_gates,
+                n_outputs=n_out, fn_set=self.fn_set,
+            )
+            generator = torch.Generator().manual_seed(self.seed * 1000 + ei)
+            eval_fn = make_eval_fn(spec, data, mtr, mva)
+            t0 = time.perf_counter()
+            final = evolve(generator, spec, self.cfg, eval_fn)
+            rec = FitRecord(
+                encoding=ecfg,
+                val_fitness=float(final.best_val),
+                train_fitness=float(final.best_train),
+                generations=int(final.gen),
+                search_s=time.perf_counter() - t0,
+                clock=eval_fn.clock,
+            )
+            self.records_.append(rec)
+            if best is None or rec.val_fitness > best[0]:
+                # per-bit activation frequency of the encoded training
+                # data: the reference snapshot online drift detection
+                # compares live traffic against (bundle v2 `ref_stats`)
+                best = (rec.val_fitness, spec, final.best, enc,
+                        bits.mean(axis=0).astype(np.float32))
+        (_, self.spec_, self.genome_, self.encoder_,
+         self.ref_stats_) = best
+        return self
+
+    # ------------------------------------------------------------------
+    def _require_fit(self):
+        if self.genome_ is None:
+            raise RuntimeError("call fit() first")
+
+    def to_servable(self) -> ServableCircuit:
+        """Export the deployment artifact (what the circuit server serves)."""
+        self._require_fit()
+        return ServableCircuit(
+            spec=self.spec_, genome=self.genome_,
+            encoder=self.encoder_, n_classes=self.n_classes_,
+            ref_stats=self.ref_stats_,
+        )
+
+    def predict(self, x: np.ndarray) -> np.ndarray:
+        return self.to_servable().predict(x, device=self.device)
+
+    def balanced_score(self, x: np.ndarray, y: np.ndarray) -> float:
+        pred = self.predict(x)
+        y = np.asarray(y)
+        return F.balanced_accuracy_rows(
+            pred, y, np.ones_like(y, bool), self.n_classes_
+        )
+
+    def accuracy(self, x: np.ndarray, y: np.ndarray) -> float:
+        return float((self.predict(x) == np.asarray(y)).mean())

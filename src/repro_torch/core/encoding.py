@@ -1,4 +1,4 @@
-"""Feature → bit encoders and bit-packing (serving subset, PyTorch port).
+"""Feature → bit encoders and bit-packing (PyTorch port).
 
 Encoding strategies (paper names):
   * ``quantize``  — equal-width buckets, binary code
@@ -10,7 +10,9 @@ Encoders are fitted and applied on the host in numpy, exactly as the
 reference does, so encoded bits are byte-identical.  Packing layout:
 ``x_words[b, w]`` bit ``j`` is encoded input bit ``b`` of row ``32*w + j``.
 Host words stay ``uint32``; they cross into torch as ``int32`` with the
-same bits (``.view(np.int32)``).
+same bits (``.view(np.int32)``).  A `PackedDataset` and its train/val
+masks are packed on the host and uploaded once to the device the search
+runs on.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 STRATEGIES = ("quantize", "quantile", "gray", "onehot")
 WORD = 32
@@ -122,6 +126,18 @@ def encode_batched(
     return bits, offsets
 
 
+def class_code_bits(n_classes: int, n_out_bits: int | None = None) -> np.ndarray:
+    """Binary class codes uint8[C, O] (paper §3.6: outputs encode the class)."""
+    o = n_out_bits or max(1, int(np.ceil(np.log2(max(n_classes, 2)))))
+    if 2 ** o < n_classes:
+        raise ValueError(f"{o} output bits cannot code {n_classes} classes")
+    table = np.zeros((n_classes, o), dtype=np.uint8)
+    for c in range(n_classes):
+        for b in range(o):
+            table[c, b] = (c >> b) & 1
+    return table
+
+
 def n_words(n_rows: int, pad_to: int = 1) -> int:
     w = (n_rows + WORD - 1) // WORD
     return ((w + pad_to - 1) // pad_to) * pad_to
@@ -150,3 +166,82 @@ def unpack_words(words: torch.Tensor, n_rows: int) -> torch.Tensor:
     bits = (words.to(torch.int32)[..., None] >> shifts) & 1
     flat = bits.reshape(*words.shape[:-1], -1)
     return flat[..., :n_rows].to(torch.uint8)
+
+
+def _words(host: np.ndarray, device) -> torch.Tensor:
+    """uint32 host words → an int32 tensor with the same bits on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(host).view(np.int32)).to(device)
+
+
+class PackedDataset(NamedTuple):
+    """Bit-packed dataset as ``int32`` tensors (the reference's ``uint32``
+    bits) on one device; all share the word axis W."""
+
+    x_words: torch.Tensor      # i32[I, W] encoded input bits
+    y_words: torch.Tensor      # i32[O, W] class-code bits of the label
+    class_words: torch.Tensor  # i32[C, W] row mask per class (y == c)
+    mask_words: torch.Tensor   # i32[W]    valid (non-padding) rows
+
+    @property
+    def n_inputs(self) -> int:
+        return self.x_words.shape[0]
+
+    @property
+    def n_outputs(self) -> int:
+        return self.y_words.shape[0]
+
+    @property
+    def n_classes(self) -> int:
+        return self.class_words.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.x_words.device
+
+
+def pack_dataset(
+    bits: np.ndarray,
+    y: np.ndarray,
+    n_classes: int,
+    n_out_bits: int | None = None,
+    pad_words_to: int = 1,
+    *,
+    device: "str | torch.device | None" = None,
+) -> PackedDataset:
+    """Pack an encoded bit matrix and labels on the host, then put the four
+    arrays on ``device`` (``None``: the card; ``"cpu"`` for the plain
+    versions).  ``pad_words_to`` rounds W up to a multiple."""
+    device = resolve_device(device)
+    r = bits.shape[0]
+    y = np.asarray(y, dtype=np.int64)
+    if y.shape != (r,):
+        raise ValueError(f"labels {y.shape} do not match {r} rows")
+    w = n_words(r, pad_words_to)
+    codes = class_code_bits(n_classes, n_out_bits)        # (C, O)
+    y_bits = codes[y]                                     # (R, O)
+    cls_bits = (y[:, None] == np.arange(n_classes)[None, :]).astype(np.uint8)
+    mask_bits = np.ones((r, 1), dtype=np.uint8)
+    return PackedDataset(
+        x_words=_words(pack_bits_rows(bits, w), device),
+        y_words=_words(pack_bits_rows(y_bits, w), device),
+        class_words=_words(pack_bits_rows(cls_bits, w), device),
+        mask_words=_words(pack_bits_rows(mask_bits, w)[0], device),
+    )
+
+
+def split_masks(
+    n_rows: int, w: int, val_fraction: float, seed: int,
+    *, device: "str | torch.device | None" = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Random row-level train/val masks as packed words i32[W] on
+    ``device`` (``None``: the card).  Paper §3.3: 50/50 by default; train
+    fitness selects, val fitness picks the best-discovered solution.  Rows
+    are drawn from numpy's ``RandomState(seed)``, as the reference draws
+    them."""
+    device = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    is_val = rng.rand(n_rows) < val_fraction
+    tr = (~is_val)[:, None].astype(np.uint8)
+    va = is_val[:, None].astype(np.uint8)
+    return (_words(pack_bits_rows(tr, w)[0], device),
+            _words(pack_bits_rows(va, w)[0], device))

@@ -1,0 +1,278 @@
+"""The 1+λ evolutionary loop with neutral drift (paper §3), PyTorch port.
+
+Selection uses ``>=`` (a child with *equal* training fitness replaces the
+parent): the neutral-drift random walk over equivalent solutions.  Training
+fitness selects the next parent; validation fitness picks the
+best-discovered solution; the search stops when validation fitness has not
+improved by ≥ γ within κ generations, or after G generations (§3.3–3.4).
+
+The loop runs on the host.  The packed data and both masks stay resident
+on the device they were packed to.  Each generation:
+
+  1. mutate λ children on the host (`core/mutate.py`, a CPU generator);
+  2. compile them to live-gate programs (`kernels/program.py`) and copy
+     the programs to the device;
+  3. one ``eval_program`` launch of the backend over all W words;
+  4. reduce to ``correct[2, λ, C]`` (train, val) on the device with
+     `fitness.confusion_counts`, read them back, compute both
+     fitnesses in float32 on the host (`fitness.balanced_accuracy_from_counts`)
+     and select on the host.
+
+A step is its draws (`draw_step`: the children, then the tie-break
+uniforms) followed by the pure `advance`, which does replacement, best
+tracking and the γ/κ bookkeeping, so a caller can feed it any draws.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import runtime
+from repro_torch.core import fitness as F
+from repro_torch.core.encoding import PackedDataset
+from repro_torch.core.genome import CircuitSpec, Genome, init_genome, opcodes
+from repro_torch.core.mutate import mutate_children
+from repro_torch.kernels.program import compile_program
+
+# The phases of one generation that `PhaseClock` books, in loop order.
+FIT_PHASES = ("mutate", "compile", "program_h2d", "launch", "fitness_reduce",
+              "readback", "host_select")
+
+
+@dataclasses.dataclass(frozen=True)
+class EvolveConfig:
+    lam: int = 4
+    p: float | None = None   # mutation rate; None → 1/n (paper §3.5)
+    gamma: float = 0.01
+    kappa: int = 300
+    max_gens: int = 8000
+
+    def rate(self, spec: CircuitSpec) -> float:
+        return self.p if self.p is not None else 1.0 / spec.n_nodes
+
+
+class EvolveState(NamedTuple):
+    parent: Genome
+    parent_fit: np.float32   # training fitness of the parent
+    best: Genome             # best-discovered solution (by validation fitness)
+    best_val: np.float32
+    best_train: np.float32   # training fitness of `best` (reporting)
+    ref_val: np.float32      # γ-improvement reference (§3.4)
+    since: np.int32          # generations since the last ≥γ val improvement
+    gen: np.int32            # generation counter
+
+
+class PhaseClock:
+    """Host seconds per phase of the search (`FIT_PHASES`), summed over
+    generations.  `lap(phase)` books the time since the previous lap (or
+    `start`) to ``phase``.  Device work is asynchronous, so ``launch`` and
+    ``fitness_reduce`` are the host's enqueue time and ``readback``
+    includes the wait for the device."""
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(FIT_PHASES, 0.0)
+        self.laps = dict.fromkeys(FIT_PHASES, 0)
+        self._t = time.perf_counter()
+
+    def start(self) -> None:
+        self._t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        t = time.perf_counter()
+        self.seconds[phase] += t - self._t
+        self.laps[phase] += 1
+        self._t = t
+
+    def mean_ms(self) -> dict[str, float]:
+        """Mean milliseconds per lap of each phase."""
+        return {k: 1e3 * s / max(self.laps[k], 1) for k, s in self.seconds.items()}
+
+
+class make_eval_fn:  # named as the reference's factory, which it replaces
+    """The batched fitness function of one packed dataset: a single forward
+    pass over *all* packed rows; train and val fitness are two masked
+    confusion reductions over the same circuit outputs.
+
+    A call compiles the genomes, makes one ``eval_program`` launch, reduces
+    its outputs under both masks to ``correct[2, λ, C]`` on the data's
+    device (`fitness.confusion_counts`, with the per-class row counts of
+    both masks counted once here by `fitness.class_counts`), reads them
+    back and computes both fitnesses on the host.  ``backend=None`` is the
+    backend of the data's device (the kernels on the card, the plain
+    versions on the CPU); naming one here is the only way to run the plain
+    versions on the card.  ``clock`` books the search's phases; the loop
+    laps it too."""
+
+    def __init__(self, spec: CircuitSpec, data: PackedDataset,
+                 mask_train: torch.Tensor, mask_val: torch.Tensor,
+                 backend: "str | runtime.EvalBackend | None" = None):
+        self.spec, self.data = spec, data
+        self.backend = (runtime.backend_for(data.device) if backend is None
+                        else runtime.resolve_backend(backend))
+        self.clock = PhaseClock()
+        self._masks = torch.stack([mask_train, mask_val])[:, None]  # (2, 1, W)
+        self._count = F.class_counts(data, self._masks)              # (2, 1, C)
+        self._count_host = self._count.cpu().numpy()
+
+    def __call__(self, genomes: Genome, *, in_loop: bool = True
+                 ) -> tuple[np.ndarray, np.ndarray]:
+        clock, data = self.clock, self.data
+        program = compile_program(opcodes(genomes, self.spec), genomes.edge_src,
+                                  genomes.out_src, self.spec.n_inputs)
+        clock.lap("compile")
+        program = program.to(data.device)
+        clock.lap("program_h2d")
+        out = self.backend.eval_program(program, data.x_words)  # (λ, O, W)
+        clock.lap("launch")
+        correct, _ = F.confusion_counts(out, data, self._masks, self._count)
+        clock.lap("fitness_reduce")
+        correct = correct.cpu().numpy()                         # (2, λ, C)
+        clock.lap("readback")
+        fit = F.balanced_accuracy_from_counts(correct, self._count_host,
+                                              in_loop=in_loop)  # (2, λ)
+        return fit[0], fit[1]
+
+
+def _stack1(genome: Genome) -> Genome:
+    return Genome(*(a[None] for a in genome))
+
+
+def _pick(children: Genome, i: int) -> Genome:
+    return Genome(*(a[i].clone() for a in children))
+
+
+def _select(fits: np.ndarray, u: np.ndarray) -> int:
+    """argmax with uniform tie-breaking (paper §3: ties at random): the
+    first index of the largest ``u`` among the fittest."""
+    return int(np.argmax(np.where(fits == fits.max(), u, np.float32(-1))))
+
+
+def init_state(
+    generator: torch.Generator,
+    spec: CircuitSpec,
+    eval_fn: "make_eval_fn",
+    seed_genome: "Genome | None" = None,
+) -> EvolveState:
+    """Initial 1+λ state.  ``seed_genome`` (when given) becomes the first
+    parent instead of a random genome drawn from ``generator``."""
+    clock = eval_fn.clock
+    parent = init_genome(generator, spec) if seed_genome is None else seed_genome
+    clock.start()
+    # the reference evaluates its first parent op by op, outside its loop
+    ft, fv = eval_fn(_stack1(parent), in_loop=False)
+    clock.lap("host_select")
+    zero = np.int32(0)
+    return EvolveState(
+        parent=parent, parent_fit=ft[0], best=parent, best_val=fv[0],
+        best_train=ft[0], ref_val=fv[0], since=zero, gen=zero,
+    )
+
+
+def draw_step(
+    generator: torch.Generator, parent: Genome, spec: CircuitSpec, cfg: EvolveConfig
+) -> tuple[Genome, np.ndarray]:
+    """One generation's draws: λ children, then λ tie-break uniforms."""
+    children = mutate_children(generator, parent, spec, cfg.rate(spec), cfg.lam)
+    u = torch.rand(cfg.lam, generator=generator).numpy()
+    return children, u
+
+
+def advance(
+    state: EvolveState, children: Genome, ft: np.ndarray, fv: np.ndarray,
+    u: np.ndarray, cfg: EvolveConfig,
+) -> EvolveState:
+    """The pure part of a generation: parent replacement, best tracking and
+    the γ/κ bookkeeping, given the children, their float32 fitnesses and
+    the tie-break uniforms."""
+    # --- parent replacement: any child with f_i >= f_S; highest wins ---
+    sel = _select(ft, u)
+    accept = ft[sel] >= state.parent_fit
+    parent = _pick(children, sel) if accept else state.parent
+    parent_fit = ft[sel] if accept else state.parent_fit
+
+    # --- best-discovered solution by validation fitness ---
+    bidx = int(np.argmax(fv))
+    improved = fv[bidx] > state.best_val
+    best = _pick(children, bidx) if improved else state.best
+    best_val = np.maximum(state.best_val, fv[bidx])
+    best_train = ft[bidx] if improved else state.best_train
+
+    # --- γ/κ termination bookkeeping ---
+    big_improve = best_val >= np.float32(state.ref_val + np.float32(cfg.gamma))
+    ref_val = best_val if big_improve else state.ref_val
+    since = np.int32(0) if big_improve else np.int32(state.since + 1)
+
+    return EvolveState(
+        parent=parent, parent_fit=parent_fit, best=best, best_val=best_val,
+        best_train=best_train, ref_val=ref_val, since=since,
+        gen=np.int32(state.gen + 1),
+    )
+
+
+def generation_step(
+    state: EvolveState, generator: torch.Generator, spec: CircuitSpec,
+    cfg: EvolveConfig, eval_fn: "make_eval_fn",
+) -> EvolveState:
+    clock = eval_fn.clock
+    clock.start()
+    children, u = draw_step(generator, state.parent, spec, cfg)
+    clock.lap("mutate")
+    ft, fv = eval_fn(children)  # (λ,), (λ,)
+    state = advance(state, children, ft, fv, u, cfg)
+    clock.lap("host_select")
+    return state
+
+
+def not_terminated(state: EvolveState, cfg: EvolveConfig) -> bool:
+    return bool(state.gen < cfg.max_gens) and bool(state.since < cfg.kappa)
+
+
+def evolve(
+    generator: torch.Generator, spec: CircuitSpec, cfg: EvolveConfig,
+    eval_fn: "make_eval_fn", seed_genome: "Genome | None" = None,
+) -> EvolveState:
+    """Run to termination."""
+    state = init_state(generator, spec, eval_fn, seed_genome=seed_genome)
+    while not_terminated(state, cfg):
+        state = generation_step(state, generator, spec, cfg, eval_fn)
+    return state
+
+
+def evolve_with_history(
+    generator: torch.Generator, spec: CircuitSpec, cfg: EvolveConfig,
+    eval_fn: "make_eval_fn",
+):
+    """Fixed-length variant recording per-generation curves: returns the
+    final state and ``(parent_fit f32[G], best_val f32[G], live bool[G])``
+    for G = ``cfg.max_gens``.  Terminated states pass through unchanged
+    (and no more generations are drawn or evaluated)."""
+    state = init_state(generator, spec, eval_fn)
+    g = cfg.max_gens
+    parent_fit = np.empty(g, np.float32)
+    best_val = np.empty(g, np.float32)
+    live = np.zeros(g, bool)
+    for i in range(g):
+        live[i] = not_terminated(state, cfg)
+        if live[i]:
+            state = generation_step(state, generator, spec, cfg, eval_fn)
+        parent_fit[i], best_val[i] = state.parent_fit, state.best_val
+    return state, (parent_fit, best_val, live)
+
+
+def evolve_packed(
+    generator: torch.Generator,
+    spec: CircuitSpec,
+    cfg: EvolveConfig,
+    data: PackedDataset,
+    mask_train: torch.Tensor,
+    mask_val: torch.Tensor,
+    seed_genome: "Genome | None" = None,
+) -> EvolveState:
+    """Convenience: evolve directly on a PackedDataset (on its device).
+    ``seed_genome`` warm-starts the search from an existing circuit."""
+    eval_fn = make_eval_fn(spec, data, mask_train, mask_val)
+    return evolve(generator, spec, cfg, eval_fn, seed_genome=seed_genome)

@@ -65,6 +65,15 @@ def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def genome_from_arrays(gate_fn, edge_src, out_src) -> Genome:
+    """A `Genome` of host ``int32`` tensors from genome arrays of any kind
+    (numpy, or the reference package's arrays once passed through
+    ``np.asarray``); a leading population axis is kept."""
+    def i32(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(_np(a), dtype=np.int32))
+    return Genome(i32(gate_fn), i32(edge_src), i32(out_src))
+
+
 def opcodes(genome: Genome, spec: CircuitSpec) -> torch.Tensor:
     """Map stored fn-set indices to raw gate opcodes (int32)."""
     table = spec.fn_table().to(genome.gate_fn.device)

@@ -3,8 +3,9 @@
   * ``"torch-ref"`` — the plain PyTorch versions (`kernels/ref.py`);
   * ``"cuda"``      — the hand-written Hopper kernels (`kernels/circuit_eval.py`).
 
-Entry points resolve ``device=None`` to the card (`resolve_device`) and the
-device to its backend (`backend_for`).  The port keeps its own registry.
+Entry points resolve ``device=None`` to the card (`resolve_device`, from
+`repro_torch.device`) and the device to its backend (`backend_for`).  The
+port keeps its own registry.
 """
 from repro_torch.runtime.backends import CudaBackend, TorchRefBackend  # noqa: F401
 from repro_torch.runtime.base import (  # noqa: F401

@@ -1,9 +1,7 @@
 """The port's own backend registry, and the device → backend resolver.
 
-Entry points take ``device=None | str | torch.device``.  ``None`` means the
-card: it resolves to ``cuda`` when a CUDA device is present and raises
-otherwise — nothing carries on quietly on the CPU.  ``"cpu"`` selects the
-plain versions, and only when the caller asked for it.
+Devices resolve in `repro_torch.device` (``None`` is the card); a resolved
+device maps to its backend here (`backend_for`).
 """
 from __future__ import annotations
 
@@ -12,16 +10,13 @@ from typing import Callable
 
 import torch
 
+from repro_torch.device import NoCudaDeviceError, resolve_device  # noqa: F401
 from repro_torch.runtime.backends import CudaBackend, TorchRefBackend
 from repro_torch.runtime.base import EvalBackend
 
 
 class UnknownBackendError(KeyError):
     """Backend name not present in the registry (lists what is)."""
-
-
-class NoCudaDeviceError(RuntimeError):
-    """The default device (the card) was asked for and none is present."""
 
 
 _lock = threading.Lock()
@@ -59,21 +54,6 @@ def get_backend(name: str) -> EvalBackend:
     inst = factory()
     with _lock:
         return _instances.setdefault(name, inst)
-
-
-def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
-    """``None`` → the card (raises without one); otherwise as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise NoCudaDeviceError(
-                "no CUDA device is present; pass device='cpu' to run the "
-                "plain PyTorch versions on the CPU"
-            )
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
-    return dev
 
 
 def backend_for(device: torch.device) -> EvalBackend:

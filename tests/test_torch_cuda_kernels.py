@@ -9,12 +9,22 @@ cannot drift apart.  The kernels run live-gate programs
 plain version and to the program-level one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+The fit path is held here too: the kernel at the fit's shape (λ mutated
+children of a 300-gate genome), and short searches that must follow the
+same trajectory through the kernel and through the plain versions.
 """
+import numpy as np
 import pytest
 import torch
 
 from chip_smoke import CHECK_SHAPES as SHAPES
+from chip_smoke import FIT_CHECK, FIT_CHECK_WORDS, fit_population
 from chip_smoke import corrupt_population, random_population, span_case, spans_by_genome
+from repro_torch.core import encoding as E
+from repro_torch.core.api import AutoTinyClassifier
+from repro_torch.core.evolve import EvolveConfig, evolve_with_history, make_eval_fn
+from repro_torch.core.genome import CircuitSpec
 from repro_torch.kernels import circuit_eval, ops
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.program import compile_program
@@ -150,3 +160,64 @@ def test_kernel_rejects_cpu_and_wrong_dtype(cuda):
         circuit_eval.eval_program(prog, x.to(cuda))
     with pytest.raises(ValueError, match="int32"):
         circuit_eval.eval_program(prog.to(cuda), x.to(cuda, torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", FIT_CHECK_WORDS)
+def test_fit_shape_kernel_matches_plain(cuda, w):
+    """λ mutated children of a 300-gate genome over 116 input rows, at the
+    fit's W and a misaligned W."""
+    opc, edge, outs, x, _ = _problem((*FIT_CHECK, w), 5, fit_population)
+    prog = compile_program(opc, edge, outs, FIT_CHECK[0])
+    got = circuit_eval.eval_program(prog.to(cuda), x.to(cuda)).cpu()
+    assert torch.equal(got, TR.eval_population_packed(opc, edge, outs, x))
+    assert torch.equal(got, TR.eval_program(prog, x))
+
+
+def _learnable(n_classes: int, rows: int = 3000):
+    rng = np.random.RandomState(n_classes)
+    x = rng.randn(rows, 6).astype(np.float32)
+    y = ((x[:, 0] > 0).astype(np.int64) + 2 * (x[:, 3] > 0.5)) % n_classes
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_classes", [2, 3])
+def test_short_fit_is_the_same_on_the_card_and_on_the_cpu(cuda, n_classes):
+    """Draws come from one CPU generator and fitness is bitwise, so the
+    search on the card (the kernel) makes the same choices as the search
+    on the CPU (the plain versions); every evaluation of the card's run is
+    one launch."""
+    x, y = _learnable(n_classes)
+    kw = dict(n_gates=64, encodings=(E.EncodingConfig("quantile", 2),), kappa=60,
+              max_gens=150, seed=1)
+    before = circuit_eval.EVAL_POPULATION.launches
+    kernel = AutoTinyClassifier(**kw, device=cuda).fit(x, y, n_classes)
+    launches = circuit_eval.EVAL_POPULATION.launches - before
+    plain = AutoTinyClassifier(**kw, device="cpu").fit(x, y, n_classes)
+    (rk,), (rp,) = kernel.records_, plain.records_
+    assert launches == rk.generations + 1
+    assert (rk.generations, rk.val_fitness, rk.train_fitness) == \
+        (rp.generations, rp.val_fitness, rp.train_fitness)
+    assert all(torch.equal(a, b) for a, b in zip(kernel.genome_, plain.genome_))
+    np.testing.assert_array_equal(kernel.predict(x), plain.predict(x))
+
+
+@pytest.mark.cuda
+def test_search_history_is_the_same_through_the_kernel_and_the_plain_versions(cuda):
+    x, y = _learnable(3)
+    enc = E.fit_encoder(x, E.EncodingConfig("quantile", 4))
+    bits = E.encode(enc, x)
+    data = E.pack_dataset(bits, y, 3, device=cuda)
+    masks = E.split_masks(len(y), data.x_words.shape[1], 0.5, 0, device=cuda)
+    spec = CircuitSpec(bits.shape[1], 100, data.n_outputs)
+    runs = []
+    for backend in ("cuda", "torch-ref"):
+        cfg = EvolveConfig(kappa=40, max_gens=120)
+        eval_fn = make_eval_fn(spec, data, *masks, backend)
+        runs.append(evolve_with_history(torch.Generator().manual_seed(0), spec, cfg, eval_fn))
+    (fk, hk), (fp, hp) = runs
+    for a, b in zip(hk, hp):
+        np.testing.assert_array_equal(a, b)
+    assert fk.gen == fp.gen and fk.best_val.tobytes() == fp.best_val.tobytes()
+    assert all(torch.equal(a, b) for a, b in zip(fk.best, fp.best))

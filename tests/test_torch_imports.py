@@ -37,7 +37,9 @@ def _sources() -> list[pathlib.Path]:
 def test_port_has_modules():
     mods = _port_modules()
     for want in ("repro_torch.kernels.circuit_eval", "repro_torch.core.api",
-                 "repro_torch.serve.circuits.server", "repro_torch.data.tabular"):
+                 "repro_torch.serve.circuits.server", "repro_torch.data.tabular",
+                 "repro_torch.core.evolve", "repro_torch.core.fitness",
+                 "repro_torch.core.mutate"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 
