@@ -53,10 +53,37 @@ Phases, one JSON line each; any failure exits non-zero before the result:
   9. profile  — one tick under `torch.profiler`: the device work it
                 launches (one spans kernel per shard and copies, nothing
                 else) and the device's busy share of the tick.
+ 10. toolflow — the paper's toolflow on the port.  The higgs circuit of
+                phase 5: its netlist (gates, GE, buffer bits, depth), its
+                Verilog, C and hardware reports with their host ms, and
+                three evaluations of it on the held-out rows that must
+                agree bit for bit (`eval_netlist`, the kernel's unpacked
+                output words, `simulate_verilog` of the emitted Verilog).
+                `blood` and `led` fitted on the card as
+                `benchmarks/hw_costs.py` fits them (n = 300, G = 2,000, the
+                quickstart's two encodings), checked the same way, with
+                their hardware reports against `gbdt_hw` and `mlp_hw` for
+                both technologies, the area and power ratios, and the cost
+                model's calibration beside the paper's Table 2.  Then the
+                baselines as `benchmarks/fig9_11_baselines.py` trains them:
+                the 2-bit smallest MLP (3x64) on blood and led, the 2-bit
+                best MLP at full width (9x512) on higgs (20,000 rows), all
+                on the card (every parameter must live there), with the
+                eager step's mean time on the stream (CUDA events around
+                the run); the float 3x64 MLP trained on blood on the
+                card and on the CPU from one start, parameters within
+                1e-4 of the largest and 99 % of predictions equal; GBDT on
+                the host; balanced accuracy of each beside the tiny
+                classifier's.
+ 11. mlp_profile — the first steps (at least 100) of each MLP run of
+                phase 10 under `torch.profiler`: per step the stream's
+                period and the device's busy ms, and the device's idle
+                share of an unprofiled step.
 
-Launch counts are set to 0 just before each main-path phase (3, 4 and 5:
-the fit, then the fitted classifier's predict) and read just after; a
-kernel of the path that did not launch fails the run.
+Launch counts are set to 0 just before each main-path phase (3, 4, 5 and
+10: the fits, then each fitted classifier's predict and its netlist
+check) and read just after; a kernel of the path that did not launch
+fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -68,6 +95,7 @@ run's kernel times and launch phases, then the medians per tree.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -81,15 +109,23 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import runtime  # noqa: E402
 from repro_torch.core import encoding as E  # noqa: E402
 from repro_torch.core import fitness as F  # noqa: E402
+from repro_torch.core import hardware as hw  # noqa: E402
 from repro_torch.core.api import (  # noqa: E402
     DEFAULT_ENCODINGS, AutoTinyClassifier, ServableCircuit, load_servable, save_servable)
 from repro_torch.core.evolve import (  # noqa: E402
     EvolveConfig, evolve_with_history, make_eval_fn)
+from repro_torch.core.baselines.gbdt import (  # noqa: E402
+    GBDTConfig, balanced_accuracy, gbdt_predict, train_gbdt)
+from repro_torch.core.baselines.mlp import (  # noqa: E402
+    BEST_MLP, SMALLEST_MLP, mlp_params_from_arrays, mlp_predict, train_mlp)
 from repro_torch.core.gates import BUF_A, FULL_FS, NOT_A  # noqa: E402
 from repro_torch.core.genome import CircuitSpec, init_genome, opcodes  # noqa: E402
 from repro_torch.core.mutate import mutate_children  # noqa: E402
+from repro_torch.core.netlist import eval_netlist  # noqa: E402
+from repro_torch.core.verilog import simulate_verilog  # noqa: E402
 from repro_torch.data import load_dataset, train_test_split  # noqa: E402
 from repro_torch.kernels import circuit_eval  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
@@ -118,6 +154,28 @@ FIT_CHECK = (116, 300, 1, 4)  # (inputs, gates, outputs, population)
 FIT_CHECK_WORDS = (2452, 2453)
 FIT_KW = dict(n_gates=300, lam=4, kappa=300, max_gens=2000, seed=SEED)
 PARITY_GENS = 200
+# the toolflow: the paper's two hardware datasets as benchmarks/hw_costs.py
+# fits them (dataset, XGBoost trees, tree depth), with the quickstart's two
+# encodings; the baselines as benchmarks/fig9_11_baselines.py trains them
+HW_DATASETS = (("blood", 1, 6), ("led", 10, 5))
+HW_ENCODINGS = (E.EncodingConfig("quantize", 2), E.EncodingConfig("quantile", 2))
+HW_FIT_KW = dict(n_gates=300, kappa=300, max_gens=2000, seed=SEED)
+BASELINE_ROWS = 20_000
+SMALL_MLP_2BIT = dataclasses.replace(SMALLEST_MLP, weight_bits=2, act_bits=2)
+# full width and BEST_MLP's own 60 epochs (about a minute on an H100): the
+# script's time needs no cut
+BEST_MLP_2BIT = dataclasses.replace(BEST_MLP, weight_bits=2, act_bits=2)
+MLP_RUNS = (("blood", SMALL_MLP_2BIT), ("led", SMALL_MLP_2BIT), ("higgs", BEST_MLP_2BIT))
+# each MLP's first steps are profiled; the float smallest MLP is trained on
+# the card and on the CPU from one start for MLP_PARITY_EPOCHS epochs, and
+# its parameters must agree within MLP_PARITY_TOL of the largest one
+MLP_PROFILE_STEPS = 100
+MLP_PARITY_EPOCHS = 5
+MLP_PARITY_TOL = 1e-4
+GBDT_CFG = GBDTConfig(n_rounds=40)  # fig9_11_baselines.py's quick setting
+# the paper's Table 2 values the cost model is calibrated to (FlexIC XGBoost)
+PAPER_TABLE2 = {"xgb_blood_flexic_area_mm2": 5.4, "xgb_led_flexic_area_mm2": 27.74,
+                "xgb_blood_flexic_power_mw": 4.12}
 
 
 class SmokeFailure(RuntimeError):
@@ -509,7 +567,7 @@ def phase_fit(gold, split) -> dict:
           "fitted predict differs from the plain version")
     check(out["predict"]["bundle_mismatches"] == 0, "the reloaded bundle predicts other ids")
     return {"fit": fit_launches["eval_population"],
-            "fit_predict": predict_launches["eval_population"]}
+            "fit_predict": predict_launches["eval_population"]}, clf
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -832,6 +890,251 @@ def phase_profile(profile_case) -> dict:
     return out
 
 
+# -- phase 10 ---------------------------------------------------------------
+def unpack_bits(words: torch.Tensor, n_rows: int) -> np.ndarray:
+    """Packed output words [O, W] → uint8[n_rows, O] on the host."""
+    return E.unpack_words(words.cpu(), n_rows).numpy().T
+
+
+def netlist_check(clf: AutoTinyClassifier, x: np.ndarray) -> dict:
+    """A fitted circuit's netlist, Verilog, C and hardware reports (host ms
+    of each), and its output bits on the rows ``x`` three ways: the
+    netlist interpreter, the kernel's output words (one launch on the
+    card) and the emitted Verilog text; the three must agree."""
+    t = {}
+    t0 = time.perf_counter()
+    net = clf.netlist()
+    t["netlist"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verilog = clf.to_verilog()
+    t["verilog"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    registered = clf.to_verilog(registered=True)
+    t["verilog_registered"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_text = clf.to_c()
+    t["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reports = [clf.hardware_report(tech) for tech in (hw.SILICON_45NM, hw.FLEXIC_08UM)]
+    t["hardware_reports"] = time.perf_counter() - t0
+    bits = E.encode(clf.encoder_, np.asarray(x, np.float32))
+    x_words = torch.from_numpy(E.pack_bits_rows(bits, E.n_words(len(bits))).view(np.int32))
+    dev = torch.device(DEVICE)
+    words = runtime.backend_for(dev).eval_program(clf.to_servable().program(dev),
+                                                  x_words.to(dev))[0]
+    ways = {"netlist": eval_netlist(net, bits), "kernel": unpack_bits(words, len(bits)),
+            "verilog": simulate_verilog(verilog, bits)}
+    bad = {f"{a}_vs_{b}": int((ways[a] != ways[b]).any(axis=1).sum())
+           for a, b in (("netlist", "kernel"), ("netlist", "verilog"), ("kernel", "verilog"))}
+    check(all(w.shape == (len(bits), net.n_outputs) for w in ways.values()),
+          f"netlist check: shapes {[w.shape for w in ways.values()]}")
+    check(not any(bad.values()), f"netlist check: rows that differ {bad}")
+    check(registered.count("<= x_in[") == len(net.used_inputs) and c_text.startswith("#include"),
+          "the registered Verilog or the C text is malformed")
+    return {"rows": len(bits), "n_gates": net.n_gates, "logic_ge": net.logic_ge(),
+            "buffer_bits": net.buffer_bits(), "depth": net.depth(),
+            "used_inputs": len(net.used_inputs), "verilog_lines": verilog.count("\n"),
+            "c_lines": c_text.count("\n"), "mismatched_rows": bad,
+            "host_ms": {k: v * 1e3 for k, v in t.items()},
+            "reports": [r.row() for r in reports]}, net
+
+
+def hw_fit(name: str, xgb_trees: int, xgb_depth: int) -> dict:
+    """One of the paper's hardware datasets fitted on the card, its circuit
+    checked and reported beside the XGBoost and smallest-MLP hardware."""
+    ds = load_dataset(name, max_rows=BASELINE_ROWS)
+    tr, te = train_test_split(ds, 0.2, seed=SEED)
+    t0 = time.perf_counter()
+    clf = AutoTinyClassifier(encodings=HW_ENCODINGS, **HW_FIT_KW).fit(tr.x, tr.y, ds.n_classes)
+    fit_s = time.perf_counter() - t0
+    gens = sum(r.generations for r in clf.records_)
+    out = {"dataset": name, "rows": {"train": len(tr.y), "test": len(te.y)},
+           "fit_s": fit_s, "generations": gens, "gens_per_s": gens / fit_s,
+           "evaluations": sum(r.generations + 1 for r in clf.records_),
+           "encodings": [{"encoding": f"{r.encoding.strategy}/{r.encoding.bits}",
+                          "generations": r.generations, "search_s": r.search_s,
+                          "best_val": r.val_fitness} for r in clf.records_],
+           "test_balanced_accuracy": clf.balanced_score(te.x, te.y)}
+    out["netlist"], net = netlist_check(clf, te.x)
+    out["hardware"] = []
+    for tech in (hw.SILICON_45NM, hw.FLEXIC_08UM):
+        tiny = hw.tiny_classifier_report(net, tech, design=f"tiny-{name}")
+        xgb = hw.gbdt_hw(xgb_trees, xgb_depth, ds.n_features, tech=tech, design=f"xgb-{name}")
+        mlp = hw.mlp_hw(SMALLEST_MLP.layer_sizes(ds.n_features, ds.n_classes), tech=tech,
+                        design=f"mlp-{name}")
+        out["hardware"].append({
+            "tech": tech.name, "rows": [r.row() for r in (tiny, xgb, mlp)],
+            "area_ratio_xgb": xgb.area_mm2 / tiny.area_mm2,
+            "power_ratio_xgb": xgb.power_mw / tiny.power_mw,
+            "area_ratio_mlp": mlp.area_mm2 / tiny.area_mm2,
+            "power_ratio_mlp": mlp.power_mw / tiny.power_mw,
+            "fpga_lut_ratio_xgb": xgb.luts / max(tiny.luts, 1),
+            "fpga_lut_ratio_mlp": mlp.luts / max(tiny.luts, 1)})
+    return out
+
+
+def train_on_the_card(tr, n_classes: int, cfg) -> tuple:
+    """`train_mlp` on the card: (model, norm, host wall s, the stream's
+    ms from a CUDA event before the call to one after it)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    model, norm = train_mlp(tr.x, tr.y, n_classes, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    return model, norm, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def mlp_profile(tr, n_classes: int, cfg) -> dict:
+    """The first epochs of the same training (at least MLP_PROFILE_STEPS
+    steps) under `torch.profiler`.  A step runs one log-softmax forward
+    kernel, so the device trace splits into steps from one to the next:
+    per step the stream's period and the device's busy time (kernels and
+    copies), their medians, and the device's idle share of the steps.
+    The profiler's own host work lengthens the period."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    per_epoch = len(tr.y) // min(cfg.batch_size, len(tr.y))
+    cut = dataclasses.replace(cfg, epochs=min(cfg.epochs, -(-MLP_PROFILE_STEPS // per_epoch)))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train_mlp(tr.x, tr.y, n_classes, cut)
+        torch.cuda.synchronize()
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    steps = cut.epochs * per_epoch
+    out = {"epochs": cut.epochs, "steps": steps, "device_events": len(device)}
+    if not device:  # the profiler did not see the card
+        return out
+    starts = [e.time_range.start for e in device]
+    marks = [i for i, e in enumerate(device)
+             if "softmax" in e.name.lower() and "backward" not in e.name.lower()]
+    check(len(marks) == steps, f"MLP profile: {len(marks)} log-softmax kernels in {steps} steps")
+    period, busy, events = [], [], []
+    for a, b in zip(marks, marks[1:]):
+        window = device[a:b]
+        period.append((starts[b] - starts[a]) / 1e3)
+        busy.append(sum(e.time_range.elapsed_us() for e in window) / 1e3)
+        events.append(len(window))
+    top: dict = {}
+    for e in device[marks[0]:marks[-1]]:
+        top[e.name[:60]] = top.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    out.update({"period_ms_median": statistics.median(period),
+                "busy_ms_median": statistics.median(busy),
+                "events_per_step_median": statistics.median(events),
+                "idle_share": 1 - sum(busy) / sum(period),
+                "device_ms_top": sorted(top.items(), key=lambda kv: -kv[1])[:6]})
+    return out
+
+
+def mlp_device_parity() -> dict:
+    """The float smallest MLP trained on blood from one start (weights from
+    a numpy seed) on the card and on the CPU: the largest parameter
+    difference against MLP_PARITY_TOL times the largest parameter, and
+    the share of equal test predictions."""
+    ds = load_dataset("blood")
+    tr, te = train_test_split(ds, 0.2, seed=SEED)
+    cfg = dataclasses.replace(SMALLEST_MLP, epochs=MLP_PARITY_EPOCHS)
+    rng = np.random.RandomState(SEED)
+    sizes = cfg.layer_sizes(ds.n_features, ds.n_classes)
+    ws = [rng.randn(a, b).astype(np.float32) * np.sqrt(2 / a) for a, b in zip(sizes, sizes[1:])]
+    bs = [np.zeros(b, np.float32) for b in sizes[1:]]
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        init = mlp_params_from_arrays(ws, bs, cfg, dev)
+        model, norm = train_mlp(tr.x, tr.y, ds.n_classes, cfg, device=dev, init=init)
+        runs[dev] = ([p.detach().cpu().numpy() for p in model.parameters()],
+                     mlp_predict(model, norm, te.x))
+    (pc, yc), (ph, yh) = runs[DEVICE], runs["cpu"]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(pc, ph))
+    scale = max(float(np.abs(b).max()) for b in ph)
+    same = float((yc == yh).mean())
+    out = {"epochs": cfg.epochs, "steps": cfg.epochs * (len(tr.y) // cfg.batch_size),
+           "max_abs_param_diff": diff, "max_abs_param": scale,
+           "tolerance": MLP_PARITY_TOL * scale, "equal_predictions": same}
+    check(diff <= MLP_PARITY_TOL * scale and same >= 0.99,
+          f"the MLP trained on the card and on the CPU differ: {out}")
+    return out
+
+
+def baseline_run(name: str, cfg) -> dict:
+    """The MLP ``cfg`` trained on the card and GBDT on the host over one
+    dataset (at most 20,000 rows, 80/20): balanced accuracy of each, the
+    MLP's wall time and its mean step on the stream (two CUDA events
+    around the run)."""
+    ds = load_dataset(name, max_rows=BASELINE_ROWS)
+    tr, te = train_test_split(ds, 0.2, seed=SEED)
+    model, norm, wall_s, stream_ms = train_on_the_card(tr, ds.n_classes, cfg)
+    steps = cfg.epochs * (len(tr.y) // min(cfg.batch_size, len(tr.y)))
+    off = [n for n, p in list(model.named_parameters()) + list(model.named_buffers())
+           if p.device.type != "cuda"]
+    check(not off, f"MLP on {name}: tensors off the card {off}")
+    pred = mlp_predict(model, norm, te.x)
+    t0 = time.perf_counter()
+    gbdt = train_gbdt(tr.x, tr.y, ds.n_classes, GBDT_CFG)
+    gbdt_s = time.perf_counter() - t0
+    return {
+        "dataset": name, "rows": {"train": len(tr.y), "test": len(te.y)},
+        "mlp": {"layers": model.layer_sizes, "weight_bits": cfg.weight_bits,
+                "act_bits": cfg.act_bits, "epochs": cfg.epochs, "steps": steps,
+                "device": str(model.ws[0].device), "wall_s": wall_s,
+                "stream_ms_per_step": stream_ms / steps,
+                "test_balanced_accuracy": balanced_accuracy(pred, te.y, ds.n_classes)},
+        "gbdt": {"rounds": GBDT_CFG.n_rounds, "estimators": gbdt.n_estimators,
+                 "host_s": gbdt_s, "test_balanced_accuracy": balanced_accuracy(
+                     gbdt_predict(gbdt, te.x), te.y, ds.n_classes)}}
+
+
+def phase_toolflow(clf: AutoTinyClassifier, split) -> tuple:
+    """The paper's toolflow on the port (phase 10); returns its
+    eval_population launches (Σ(generations + 1) per fit, one per fitted
+    predict and one per netlist check) and the MLP runs."""
+    circuit_eval.reset_launch_counts()
+    higgs, _ = netlist_check(clf, split[2].x)
+    fits = [hw_fit(*spec) for spec in HW_DATASETS]
+    launches = launch_counts()
+    want = sum(f["evaluations"] + 1 for f in fits) + 1 + len(fits)
+    calibration = {
+        "xgb_blood_flexic_area_mm2": hw.gbdt_hw(1, 6, 4, tech=hw.FLEXIC_08UM).area_mm2,
+        "xgb_led_flexic_area_mm2": hw.gbdt_hw(10, 5, 7, tech=hw.FLEXIC_08UM).area_mm2,
+        "xgb_blood_flexic_power_mw": hw.gbdt_hw(1, 6, 4, tech=hw.FLEXIC_08UM).power_mw}
+    baselines = [baseline_run(name, cfg) for name, cfg in MLP_RUNS]
+    parity = mlp_device_parity()
+    for f in fits:
+        b = next(b for b in baselines if b["dataset"] == f["dataset"])
+        b["tiny_test_balanced_accuracy"] = f["test_balanced_accuracy"]
+    emit({"phase": "toolflow", "higgs_circuit": higgs, "hw_fits": fits,
+          "calibration_model_vs_paper": {k: [v, PAPER_TABLE2[k]] for k, v in calibration.items()},
+          "baselines": baselines, "mlp_card_vs_cpu": parity,
+          "best_mlp_epochs": {"config": BEST_MLP.epochs, "run": BEST_MLP_2BIT.epochs},
+          "launches": launches, "expected_eval_population": want})
+    check(launches["eval_population"] == want,
+          f"toolflow: {launches['eval_population']} eval_population launches, expected "
+          f"{want} (Σ generations + 1, a predict and a netlist check per fit, the higgs check)")
+    check(launches["eval_population_spans"] == 0, "the toolflow launched the spans kernel")
+    return launches["eval_population"], baselines
+
+
+# -- phase 11 ---------------------------------------------------------------
+def phase_mlp_profile(baselines) -> dict:
+    """The toolflow's MLP runs profiled (after phase 9, whose tick profile
+    is the run's first `torch.profiler` session): per step the device's
+    busy ms and the stream's period, and the idle share of the step
+    against the unprofiled run's mean step."""
+    runs = []
+    for (name, cfg), b in zip(MLP_RUNS, baselines):
+        ds = load_dataset(name, max_rows=BASELINE_ROWS)
+        tr, _ = train_test_split(ds, 0.2, seed=SEED)
+        prof = {"dataset": name, "layers": b["mlp"]["layers"],
+                "stream_ms_per_step": b["mlp"]["stream_ms_per_step"],
+                **mlp_profile(tr, ds.n_classes, cfg)}
+        if "busy_ms_median" in prof:
+            prof["idle_share_unprofiled"] = 1 - prof["busy_ms_median"] / prof["stream_ms_per_step"]
+        runs.append(prof)
+    out = {"phase": "mlp_profile", "runs": runs}
+    emit(out)
+    return out
+
+
 # -- A/B against another tree ----------------------------------------------
 def run_summary(text: str) -> dict:
     """Each kernel's ``ms`` and uncompacted ms, and the one-shard ticks'
@@ -895,13 +1198,15 @@ def main() -> int:
     predict_launches = phase_predict(gold)
     serve_launches, timing_case, profile_case = phase_serve(gold)
     split = higgs_split()
-    population_launches = {"predict": predict_launches["eval_population"],
-                           **phase_fit(gold, split)}
+    fit_launches, higgs_clf = phase_fit(gold, split)
+    population_launches = {"predict": predict_launches["eval_population"], **fit_launches}
     fit_parity_case = phase_fit_parity(split)
+    population_launches["toolflow"], baselines = phase_toolflow(higgs_clf, split)
     entries = phase_timing(gold, checks, population_launches, serve_launches, timing_case,
                            fit_parity_case)
     phase_sweep(gold)
     phase_profile(profile_case)
+    phase_mlp_profile(baselines)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     check(all(v > 0 for v in population_launches.values()),

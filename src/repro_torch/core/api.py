@@ -4,7 +4,9 @@
 candidate encoding (strategy, bits per input) fit the encoder on the
 training rows, pack the bits onto the device, split train/val rows (§3.3),
 run the 1+λ search (`core/evolve.py`), and keep the circuit with the best
-validation fitness across encodings (§5.2).
+validation fitness across encodings (§5.2).  Its `netlist`, `to_verilog`,
+`to_c` and `hardware_report` take the fitted circuit on to hardware
+(§4, host code: `core/netlist.py`, `core/verilog.py`, `core/hardware.py`).
 
 A `ServableCircuit` is a fitted genome plus everything needed to run it on
 raw float features (fitted encoder, class count).  Bundles use the
@@ -27,7 +29,7 @@ import torch
 from repro_torch import runtime
 from repro_torch.core import encoding as E
 from repro_torch.core import fitness as F
-from repro_torch.core import gates
+from repro_torch.core import gates, hardware, netlist, verilog
 from repro_torch.core.evolve import EvolveConfig, PhaseClock, evolve, make_eval_fn
 from repro_torch.core.genome import CircuitSpec, Genome, genome_from_arrays, opcodes
 from repro_torch.kernels.program import CircuitProgram, compile_program
@@ -109,7 +111,7 @@ class ServableCircuit:
     def n_outputs(self) -> int:
         return self.spec.n_outputs
 
-    def program(self, device: "str | torch.device" = "cpu") -> CircuitProgram:
+    def program(self, device: "str | torch.device") -> CircuitProgram:
         """The genome's live-gate program (`kernels/program.py`) on
         ``device``: compiled once, copied once to each device."""
         dev = torch.device(device)
@@ -370,3 +372,22 @@ class AutoTinyClassifier:
 
     def accuracy(self, x: np.ndarray, y: np.ndarray) -> float:
         return float((self.predict(x) == np.asarray(y)).mean())
+
+    # ------------------------------------------------------------------
+    # The hardware toolflow (paper §4): host code, no device needed
+    def netlist(self) -> netlist.Netlist:
+        self._require_fit()
+        return netlist.extract(self.genome_, self.spec_)
+
+    def to_verilog(self, module_name: str = "tiny_classifier",
+                   registered: bool = False) -> str:
+        return verilog.to_verilog(self.netlist(), module_name, registered)
+
+    def to_c(self, fn_name: str = "tiny_classifier_predict") -> str:
+        return verilog.to_c(self.netlist(), fn_name)
+
+    def hardware_report(
+        self, tech: hardware.TechModel = hardware.SILICON_45NM,
+        design: str = "tiny",
+    ) -> hardware.HardwareReport:
+        return hardware.tiny_classifier_report(self.netlist(), tech, design)

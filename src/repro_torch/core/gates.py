@@ -17,6 +17,35 @@ AND, OR, NAND, NOR, XOR, XNOR, NOT_A, BUF_A = range(8)
 GATE_NAMES = ("AND", "OR", "NAND", "NOR", "XOR", "XNOR", "NOT", "BUF")
 N_OPCODES = 8
 
+# Verilog expression templates per opcode (a, b are operand expressions).
+VERILOG_EXPR = (
+    "({a} & {b})",
+    "({a} | {b})",
+    "~({a} & {b})",
+    "~({a} | {b})",
+    "({a} ^ {b})",
+    "~({a} ^ {b})",
+    "~{a}",
+    "{a}",
+)
+
+# C expression templates (single-bit operands).
+C_EXPR = (
+    "({a} & {b})",
+    "({a} | {b})",
+    "(!({a} & {b}))",
+    "(!({a} | {b}))",
+    "({a} ^ {b})",
+    "(!({a} ^ {b}))",
+    "(!{a})",
+    "({a})",
+)
+
+# NAND2-equivalent gate count per opcode (standard-cell gate equivalents;
+# NAND2/NOR2 = 1.0, AND2/OR2 = 1.5 (gate + inverter), XOR2/XNOR2 = 2.5,
+# INV = 0.5, BUF = 0.5).  Used by repro_torch.core.hardware.
+NAND2_EQUIV = (1.5, 1.5, 1.0, 1.0, 2.5, 2.5, 0.5, 0.5)
+
 # The paper's function sets.
 FULL_FS = (AND, OR, NAND, NOR)
 NAND_FS = (NAND,)

@@ -39,7 +39,9 @@ def test_port_has_modules():
     for want in ("repro_torch.kernels.circuit_eval", "repro_torch.core.api",
                  "repro_torch.serve.circuits.server", "repro_torch.data.tabular",
                  "repro_torch.core.evolve", "repro_torch.core.fitness",
-                 "repro_torch.core.mutate"):
+                 "repro_torch.core.mutate", "repro_torch.core.netlist",
+                 "repro_torch.core.verilog", "repro_torch.core.hardware",
+                 "repro_torch.core.baselines.gbdt", "repro_torch.core.baselines.mlp"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 
