@@ -31,6 +31,27 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 result must equal the tenant's `predict` on the card (the
                 golden tenants: the committed ids) and each tick must make
                 one launch per shard with work.
+  4b. swap    — plan swaps, a shadow slot and a cold boot at the serve
+                phase's width, through `CircuitServer(device="cuda")`,
+                whose ticks launch span-launch units (`runtime/aot.py`):
+                (a) 3 warm ticks of 240 requests at one shard; (b) a
+                golden bundle added under a new name, its requests pending
+                across `swap_plan` (prewarmed: the new shard's units built
+                and run once dead before the fence); (c) a grow to two
+                shards through `PlanCompiler(...).recompile` and
+                `swap_plan(compiler=...)`, then a stale plan refused with
+                `StalePlanError`; (d) a shadow fourth member on the
+                ensemble: served ids stay the 3-member vote, the hook gets
+                the member's own ids; (e) the registry and the units
+                exported to an `ArtifactStore`, and a fresh process that
+                loads it, rebuilds the plan with `compile_from_placement`,
+                preloads the units and answers probe rows — with no
+                program compiled and no nvcc run, and the warm server's
+                ids.  Every request is answered once and equals predict;
+                each `RebalanceEvent` reuses exactly the untouched shards.
+                The line has every event, the prewarms, `aot_stats`, the
+                first post-swap tick beside the steady median, the boot's
+                wall ms by step and the launch counts.
   5. fit      — `AutoTinyClassifier(n_gates=300, λ=4, κ=300, G=2000)` over
                 the four default encodings on higgs (98,050 rows, 80/20
                 train/test split: W = 2,452 words of training rows), on
@@ -80,10 +101,10 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 period and the device's busy ms, and the device's idle
                 share of an unprofiled step.
 
-Launch counts are set to 0 just before each main-path phase (3, 4, 5 and
-10: the fits, then each fitted classifier's predict and its netlist
-check) and read just after; a kernel of the path that did not launch
-fails the run.
+Launch counts are set to 0 just before each main-path phase (3, 4, 4b,
+5 and 10: the fits, then each fitted classifier's predict and its
+netlist check; in 4b before each tick, swap and the boot) and read just
+after; a kernel of the path that did not launch fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -91,16 +112,19 @@ power limit, and last ``{"ok": true, "device": {...}}``.
 
 runs this tree's smoke run and DIR's (another checkout, e.g. the parent
 commit unpacked with ``git archive``) in turns on one card and prints each
-run's kernel times and launch phases, then the medians per tree.
+run's kernel times, launch phases and swap numbers (``swap_ms``, the first
+post-swap and the steady tick latency), then the medians per tree.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -130,8 +154,11 @@ from repro_torch.data import load_dataset, train_test_split  # noqa: E402
 from repro_torch.kernels import circuit_eval  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels.program import compile_program  # noqa: E402
-from repro_torch.serve.circuits import CircuitRegistry, CircuitServer  # noqa: E402
-from repro_torch.serve.planning import PlacementPolicy, ensemble_vote  # noqa: E402
+from repro_torch.runtime import aot  # noqa: E402
+from repro_torch.serve.artifacts import ArtifactStore  # noqa: E402
+from repro_torch.serve.circuits import (  # noqa: E402
+    CircuitRegistry, CircuitServer, StalePlanError)
+from repro_torch.serve.planning import PlacementPolicy, PlanCompiler, ensemble_vote  # noqa: E402
 
 GOLDEN = os.path.join(ROOT, "tests", "torch_golden")
 SEED = 0
@@ -170,6 +197,7 @@ MLP_RUNS = (("blood", SMALL_MLP_2BIT), ("led", SMALL_MLP_2BIT), ("higgs", BEST_M
 # the card and on the CPU from one start for MLP_PARITY_EPOCHS epochs, and
 # its parameters must agree within MLP_PARITY_TOL of the largest one
 MLP_PROFILE_STEPS = 100
+MLP_PROFILE_ATTEMPTS = 3
 MLP_PARITY_EPOCHS = 5
 MLP_PARITY_TOL = 1e-4
 GBDT_CFG = GBDTConfig(n_rounds=40)  # fig9_11_baselines.py's quick setting
@@ -440,9 +468,57 @@ def build_registry(gold):
     return reg, sources
 
 
+def draw_work(rng, tenants, sources, n_requests) -> list:
+    """``n_requests`` requests round-robin over ``tenants``: (tenant, first
+    row, rows), 1 to 700 rows each, cut from the tenant's source rows."""
+    work = []
+    for r in range(n_requests):
+        tenant = tenants[r % len(tenants)]
+        x_all, _ = sources[tenant]
+        size = min(int(rng.choice([1, 3, 17, 64, 200, 700])), len(x_all) - 1)
+        lo = int(rng.randint(0, len(x_all) - size))
+        work.append((tenant, lo, size))
+    return work
+
+
+def expected_ids(work, sources, members) -> dict:
+    """Per tenant, the ids each of its requests must get: one predict on
+    the card per member over all the tenant's rows, voted over
+    ``members[tenant]`` and split per request."""
+    expect = {}
+    for tenant, ms in members.items():
+        mine = [(lo, size) for t, lo, size in work if t == tenant]
+        if not mine:
+            continue
+        x_all, _ = sources[tenant]
+        x = np.concatenate([x_all[lo:lo + s] for lo, s in mine])
+        ids = np.stack([m.predict(x, device=DEVICE) for m in ms])
+        expect[tenant] = np.split(ensemble_vote(ids, ms[0].n_classes),
+                                  np.cumsum([s for _, s in mine])[:-1])
+    return expect
+
+
+def count_mismatches(server, work, tickets, sources, expect) -> tuple[int, int]:
+    """(requests whose ids differ from ``expect``, golden requests whose
+    ids differ from the reference's committed ids); reads every ticket
+    once."""
+    seen = {t: 0 for t in expect}
+    bad = gold_bad = 0
+    for (tenant, lo, size), ticket in zip(work, tickets):
+        got = server.result(ticket)
+        want = expect[tenant][seen[tenant]]
+        seen[tenant] += 1
+        bad += int(got.shape != want.shape or (got != want).any())
+        gold_ids = sources[tenant][1]
+        if gold_ids is not None:
+            gold_bad += int((got != gold_ids[lo:lo + size]).any())
+    return bad, gold_bad
+
+
 def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple:
     reg, sources = build_registry(gold)
     tenants = list(reg)
+    members = {t: reg.members(t) for t in tenants}
     rng = np.random.RandomState(SEED + 1)
     out = {"phase": "serve", "tenants": len(tenants),
            "slots": sum(len(reg.members(t)) for t in tenants), "runs": []}
@@ -453,23 +529,9 @@ def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple:
         plan = server.plan()
         ticks = []
         for _ in range(n_ticks):
-            work = []
-            for r in range(requests_per_tick):
-                tenant = tenants[r % len(tenants)]
-                x_all, _ = sources[tenant]
-                size = min(int(rng.choice([1, 3, 17, 64, 200, 700])), len(x_all) - 1)
-                lo = int(rng.randint(0, len(x_all) - size))
-                work.append((tenant, lo, size))
-            # expectations first, on the card, outside the counted window:
-            # one predict per tenant over all its rows this tick
-            expect = {}
-            for tenant in tenants:
-                mine = [(lo, size) for t, lo, size in work if t == tenant]
-                x_all, _ = sources[tenant]
-                x = np.concatenate([x_all[lo:lo + s] for lo, s in mine])
-                ids = np.stack([m.predict(x, device=DEVICE) for m in reg.members(tenant)])
-                expect[tenant] = np.split(ensemble_vote(ids, reg.get(tenant).n_classes),
-                                          np.cumsum([s for _, s in mine])[:-1])
+            work = draw_work(rng, tenants, sources, requests_per_tick)
+            # expectations first, on the card, outside the counted window
+            expect = expected_ids(work, sources, members)
             circuit_eval.reset_launch_counts()
             tickets = [server.submit(t, sources[t][0][lo:lo + s]) for t, lo, s in work]
             t0 = time.perf_counter()
@@ -478,16 +540,7 @@ def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple:
             counts = launch_counts()
             for k, v in counts.items():
                 total[k] += v
-            seen = {t: 0 for t in tenants}
-            bad = gold_bad = 0
-            for (tenant, lo, size), ticket in zip(work, tickets):
-                got = server.result(ticket)
-                want = expect[tenant][seen[tenant]]
-                seen[tenant] += 1
-                bad += int(got.shape != want.shape or (got != want).any())
-                gold_ids = sources[tenant][1]
-                if gold_ids is not None:
-                    gold_bad += int((got != gold_ids[lo:lo + size]).any())
+            bad, gold_bad = count_mismatches(server, work, tickets, sources, expect)
             busy = {ref.shard for t in tenants for ref in plan.placement[t]}
             ticks.append({"rows": report.rows, "requests": report.requests,
                           "launches": report.launches, "span_words": report.span_words,
@@ -508,6 +561,275 @@ def phase_serve(gold, n_ticks=3, requests_per_tick=240) -> tuple:
     out["launches"] = total
     emit(out)
     return total, timing_case, profile_case
+
+
+# -- phase 4b: swap ----------------------------------------------------------
+# a fresh process boots from the exported store: loads the registry,
+# rebuilds the exact plan with compile_from_placement, preloads the
+# stored span-launch units and answers the probe rows; it reports the
+# cold work it did (programs compiled, nvcc runs) and each step's wall ms
+BOOT_SCRIPT = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, os.path.join(os.getcwd(), "src"))
+from repro_torch.kernels import circuit_eval
+from repro_torch.runtime import aot
+from repro_torch.serve.artifacts import ArtifactStore
+from repro_torch.serve.circuits import CircuitServer
+from repro_torch.serve.planning import PlacementPolicy
+
+path, spawned = sys.argv[1], float(sys.argv[2])
+aot.reset_compile_count(); aot.reset_build_count(); circuit_eval.reset_launch_counts()
+clock = time.perf_counter
+ms = {"imports_ms": (time.time() - spawned) * 1e3}
+t = clock(); torch.zeros(1, device="cuda"); torch.cuda.synchronize()
+ms["cuda_init_ms"] = (clock() - t) * 1e3
+t = clock()
+store = ArtifactStore(path)
+reg = store.load_registry()
+with open(os.path.join(path, "plan.json")) as f:
+    meta = json.load(f)
+probes = dict(np.load(os.path.join(path, "probe.npz")))
+ms["store_load_ms"] = (clock() - t) * 1e3
+t = clock()
+server = CircuitServer(reg, device="cuda", policy=PlacementPolicy(n_shards=meta["n_shards"]))
+plan = server.compiler.compile_from_placement(reg.catalog(), meta["placement"], meta["n_shards"])
+server.swap_plan(plan, action="boot", reason="artifact", prewarm=False)
+ms["plan_rebuild_ms"] = (clock() - t) * 1e3
+t = clock()
+summary = server.preload_executables(store)
+torch.cuda.synchronize()
+ms["preload_ms"] = (clock() - t) * 1e3
+t = clock()
+tickets = {name: server.submit(name, x) for name, x in probes.items()}
+report = server.tick()
+ids = {name: server.result(k) for name, k in tickets.items()}
+ms["first_tick_ms"] = (clock() - t) * 1e3
+ms["start_to_first_answer_ms"] = (time.time() - spawned) * 1e3
+np.savez(os.path.join(path, "cold_ids.npz"), **ids)
+print(json.dumps({"boot": {
+    "wall_ms": ms, "plan_hash": plan.content_hash, "compile_count": aot.compile_count(),
+    "build_count": aot.build_count(), "preload": summary, "aot_stats": server.aot_stats,
+    "launches": {k.name: k.launches for k in circuit_eval.KERNELS},
+    "tick_launches": report.launches, "span_words": report.span_words}}))
+"""
+
+
+class PathCounts:
+    """Launches of one main path, and the programs it compiled, summed over
+    the calls that drive it: each call runs with the launch counts set to
+    0 just before it and read just after, so the predicts that check the
+    path between calls are not counted."""
+
+    def __init__(self):
+        self.total = {k.name: 0 for k in circuit_eval.KERNELS}
+        self.programs = 0
+
+    def __call__(self, fn, *args, **kw):
+        circuit_eval.reset_launch_counts()
+        programs = aot.compile_count()
+        try:
+            return fn(*args, **kw)
+        finally:
+            for k, v in launch_counts().items():
+                self.total[k] += v
+            self.programs += aot.compile_count() - programs
+
+
+def swap_tick(drive, server, rng, reg, sources, members, n_requests=240) -> dict:
+    """One tick of fresh traffic over every tenant of ``reg``, its ids
+    held to ``members``' vote."""
+    work = draw_work(rng, list(reg), sources, n_requests)
+    expect = expected_ids(work, sources, members)
+    tickets = [server.submit(t, sources[t][0][lo:lo + s]) for t, lo, s in work]
+    return run_tick(drive, server, work, tickets, sources, expect)
+
+
+def run_tick(drive, server, work, tickets, sources, expect) -> dict:
+    """Tick the server (counted), check every ticket once against
+    ``expect``; latency by the host clock around the tick, which ends in
+    the readback."""
+    units = server.aot_stats["compiles"]
+    spans = drive.total["eval_population_spans"]
+    t0 = time.perf_counter()
+    report = drive(server.tick)
+    tick_ms = (time.perf_counter() - t0) * 1e3
+    bad, gold_bad = count_mismatches(server, work, tickets, sources, expect)
+    check(bad == 0 and gold_bad == 0, f"swap: {bad} requests differ from predict, "
+          f"{gold_bad} from the golden ids")
+    check(not server._results, "swap: a request was answered twice")
+    spans = drive.total["eval_population_spans"] - spans
+    check(spans == report.launches, f"swap: {spans} spans launches for {report.launches} "
+          "busy shards")
+    return {"tick_ms": tick_ms, "launches": report.launches, "span_words": report.span_words,
+            "shards": report.plan_shards, "rows": report.rows,
+            "units_built": server.aot_stats["compiles"] - units,
+            "launch_phase_ms": report.phase_s["launch"] * 1e3}
+
+
+def checked_swap(drive, server, plan, label: str, **kw) -> dict:
+    """``swap_plan`` (prewarmed) with requests pending; the event's reuse
+    must be the shards whose content hash the old plan already had.
+    Returns the event and the units the prewarm built or warmed."""
+    old = {s.content_hash for s in server.peek_plan().shards}
+    before = dict(server.aot_stats)
+    event = drive(server.swap_plan, plan, **kw)
+    reused = sum(s.content_hash in old for s in plan.shards)
+    check(event.shards_reused == reused and event.shards_rebuilt == len(plan.shards) - reused,
+          f"swap {label}: {event.shards_reused} reused, {event.shards_rebuilt} rebuilt; "
+          f"{reused} shards were untouched")
+    check(event.inflight_requests > 0, f"swap {label}: nothing was pending")
+    check(server.peek_plan() is plan, f"swap {label}: the plan was not installed")
+    prewarm = {k: server.aot_stats[k] - before[k] for k in ("compiles", "exec_warms", "loads")}
+    check(prewarm["compiles"] > 0 and prewarm["exec_warms"] >= prewarm["compiles"],
+          f"swap {label}: the prewarm before the fence built {prewarm}")
+    return {"event": dataclasses.asdict(event), "prewarm": prewarm}
+
+
+def cold_boot(server, reg, probes: dict) -> tuple:
+    """Export the registry and the span-launch units to an `ArtifactStore`
+    (the plan's placement beside it as JSON), boot a fresh process from
+    it and return (its report, ids that differ from the warm server's,
+    units stored, export ms)."""
+    tickets = {t: server.submit(t, x) for t, x in probes.items()}
+    server.tick()
+    warm_ids = {t: server.result(k) for t, k in tickets.items()}
+    build = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(build, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="swap_store_", dir=build)
+    try:
+        store = ArtifactStore(path)
+        store.put_registry(reg)
+        t0 = time.perf_counter()
+        keys = server.export_executables(store)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        plan = server.plan()
+        with open(os.path.join(path, "plan.json"), "w") as f:
+            json.dump({"n_shards": plan.n_shards, "plan_hash": plan.content_hash,
+                       "placement": {t: [[int(r.shard), int(r.slot)] for r in refs]
+                                     for t, refs in plan.placement.items()}}, f)
+        np.savez(os.path.join(path, "probe.npz"), **probes)
+        spawned = time.time()
+        res = subprocess.run([sys.executable, "-c", BOOT_SCRIPT, path, repr(spawned)],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        process_ms = (time.time() - spawned) * 1e3
+        check(res.returncode == 0, f"swap: the cold boot failed:\n{res.stderr[-3000:]}")
+        boot = json.loads(res.stdout.strip().splitlines()[-1])["boot"]
+        cold = np.load(os.path.join(path, "cold_ids.npz"))
+        bad = sum(int(cold[t].shape != warm_ids[t].shape or (cold[t] != warm_ids[t]).any())
+                  for t in warm_ids)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    boot["process_wall_ms"] = process_ms
+    check(boot["plan_hash"] == plan.content_hash,
+          "boot: compile_from_placement rebuilt another plan")
+    return boot, bad, keys, export_ms
+
+
+def phase_swap(gold) -> dict:
+    """Plan swaps, a shadow slot, export and a cold boot on the card, at
+    the serve phase's width (steps a–e of the module doc)."""
+    reg, sources = build_registry(gold)
+    rng = np.random.RandomState(SEED + 5)
+    g = torch.Generator().manual_seed(SEED + 5)
+    members = {t: reg.members(t) for t in reg}
+    drive = PathCounts()
+    t_phase = time.perf_counter()
+    server = CircuitServer(reg, device=DEVICE)
+    out = {"phase": "swap", "card": gpu_line(), "tenants": len(reg)}
+    # (a) warm up
+    out["warm_ticks"] = [swap_tick(drive, server, rng, reg, sources, members)
+                         for _ in range(3)]
+    # (b) a new tenant (a golden bundle under a new name), its requests
+    # pending across a prewarmed swap
+    reg.add("led_v2", gold["led"][0])
+    sources["led_v2"], members["led_v2"] = sources["led"], reg.members("led_v2")
+    work = draw_work(rng, list(reg), sources, 240)
+    expect = expected_ids(work, sources, members)
+    tickets = [server.submit(t, sources[t][0][lo:lo + s]) for t, lo, s in work]
+    prewarmed = server.spans_seen()
+    add = checked_swap(drive, server, server.compiler.recompile(reg.catalog(),
+                                                                server.peek_plan()),
+                       "add", action="swap", reason="tenant added")
+    add["first_tick"] = run_tick(drive, server, work, tickets, sources, expect)
+    check(add["first_tick"]["span_words"] not in prewarmed
+          or add["first_tick"]["units_built"] == 0,
+          "swap: the first tick after a prewarmed swap built a unit")
+    add["next_ticks"] = [swap_tick(drive, server, rng, reg, sources, members)
+                         for _ in range(2)]
+    out["add"] = add
+    # (c) grow to two shards; then a plan compiled before a registry change
+    grow = PlanCompiler(server.backend, PlacementPolicy(n_shards=2))
+    work = draw_work(rng, list(reg), sources, 240)
+    expect = expected_ids(work, sources, members)
+    tickets = [server.submit(t, sources[t][0][lo:lo + s]) for t, lo, s in work]
+    out["grow"] = checked_swap(drive, server, grow.recompile(reg.catalog(), server.peek_plan()),
+                               "grow", compiler=grow, action="grow", reason="1 -> 2 shards")
+    check(out["grow"]["event"]["to_shards"] == 2 and server.policy.n_shards == 2,
+          "swap: the plan did not grow")
+    out["grow"]["first_tick"] = run_tick(drive, server, work, tickets, sources, expect)
+    stale = grow.recompile(reg.catalog(), server.peek_plan())
+    reg.add("late", gold["higgs"][0])
+    try:
+        drive(server.swap_plan, stale)
+        refused = False
+    except StalePlanError:
+        refused = True
+    check(refused, "swap: a stale plan was installed")
+    reg.remove("late")
+    out["grow"]["stale_plan_refused"] = refused
+    # (d) a shadow fourth member on the ensemble: the served ids stay the
+    # 3-member vote, the hook gets the shadow member's own ids
+    shadow = make_tenant(g, rng, 7, 4, 80, 3)
+    seen = []
+    server.shadow_hook = lambda tenant, shadow_ids, served: seen.append(
+        (tenant, shadow_ids[0]))
+    server.set_shadow("ensemble", 4, 1)
+    reg.add_ensemble("ensemble", (*members["ensemble"], shadow), replace=True)
+    work = draw_work(rng, list(reg), sources, 240)
+    expect = expected_ids(work, sources, members)
+    tickets = [server.submit(t, sources[t][0][lo:lo + s]) for t, lo, s in work]
+    shadow_tick = run_tick(drive, server, work, tickets, sources, expect)
+    x = np.concatenate([sources["ensemble"][0][lo:lo + s]
+                        for t, lo, s in work if t == "ensemble"])
+    check(len(seen) == 1 and seen[0][0] == "ensemble", f"swap: {len(seen)} shadow hook calls")
+    shadow_bad = int((seen[0][1] != shadow.predict(x, device=DEVICE)).sum())
+    check(shadow_bad == 0, f"swap: {shadow_bad} shadow ids differ from the member's predict")
+    server.clear_shadow("ensemble")
+    reg.add_ensemble("ensemble", members["ensemble"], replace=True)
+    out["shadow"] = {"tick": shadow_tick, "rows": len(x), "shadow_mismatches": shadow_bad}
+    # (e) export, then a cold boot in a fresh process
+    probes = {t: sources[t][0][:300] for t in reg}
+    boot, boot_bad, keys, export_ms = drive(cold_boot, server, reg, probes)
+    check(boot["compile_count"] == 0 and boot["build_count"] == 0,
+          f"boot: compiled {boot['compile_count']} programs, ran nvcc {boot['build_count']} "
+          "times")
+    check(boot["preload"]["loaded"] == len(keys) and boot["preload"]["load_failures"] == 0
+          and boot["aot_stats"]["compiles"] == 0,
+          f"boot: {boot['preload']} for {len(keys)} stored units, {boot['aot_stats']}")
+    check(boot["launches"]["eval_population_spans"]
+          == boot["preload"]["exec_warmed"] + boot["tick_launches"],
+          f"boot: launches {boot['launches']}")
+    check(boot_bad == 0, f"boot: {boot_bad} tenants' ids differ from the warm server's")
+    steady = [t["tick_ms"] for t in out["warm_ticks"][1:] + add["next_ticks"]]
+    out.update({
+        "export": {"units": len(keys), "export_ms": export_ms},
+        "boot": {**boot, "mismatches": boot_bad},
+        "aot_stats": dict(server.aot_stats), "programs_compiled": drive.programs,
+        "first_post_swap_tick_ms": add["first_tick"]["tick_ms"],
+        "steady_tick_ms_median": statistics.median(steady),
+        "events": [dataclasses.asdict(e) for e in server.stats.rebalances],
+        "launches": drive.total, "wall_s": time.perf_counter() - t_phase,
+    })
+    emit(out)
+    check(drive.total["eval_population"] == 0, "swap: the path launched eval_population")
+    busy = server.stats.launches
+    check(drive.total["eval_population_spans"] == busy + server.aot_stats["exec_warms"],
+          f"swap: {drive.total['eval_population_spans']} spans launches; ticks made {busy} "
+          f"and the prewarms {server.aot_stats['exec_warms']}")
+    return {"swap": drive.total["eval_population_spans"],
+            "boot": boot["launches"]["eval_population_spans"]}
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -766,8 +1088,8 @@ def population_timing(genome, x, what: str, sms: int) -> dict:
         sum(a for a, _ in work), sum(r for _, r in work))
 
 
-def phase_timing(gold, checks, population_launches, serve_launches, timing_case,
-                 fit_parity_case) -> list:
+def phase_timing(gold, checks, population_launches, serve_launches, swap_launches,
+                 timing_case, fit_parity_case) -> list:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # eval_population at the golden higgs predict (P = 1) and at the fit's
     # λ children (P = 4); its launches are those of every main path
@@ -810,9 +1132,10 @@ def phase_timing(gold, checks, population_launches, serve_launches, timing_case,
           f"and {staged} rows below the widths")
     live, rows = sum(a for a, _ in work), sum(r for _, r in work)
     nbytes = 4 * (3 * live + k * (n_out + 2) + rows * span + k * n_out * span)
+    spans_by_path = {"serve": serve_launches["eval_population_spans"], **swap_launches}
     entries.append(kernel_entry(
         circuit_eval.EVAL_POPULATION_SPANS, checks["eval_population_spans"],
-        serve_launches["eval_population_spans"], timing(
+        sum(spans_by_path.values()), timing(
             {"P": k, "I_max": i_max, "n": n, "O": n_out, "span_words": span,
              "W_total": k * span, "R": prog.n_rows_max, "L": prog.n_gates},
             circuit_eval.threads_per_block(prog, span, k, sms),
@@ -823,6 +1146,7 @@ def phase_timing(gold, checks, population_launches, serve_launches, timing_case,
             lambda: plain.eval_program_spans(prog, x, slots, woff, iw, live_k,
                                              span_words=span),
             nbytes, live * span, live, rows)))
+    entries[-1]["launches_by_path"] = spans_by_path
     return entries
 
 
@@ -996,19 +1320,28 @@ def mlp_profile(tr, n_classes: int, cfg) -> dict:
     from torch.profiler import ProfilerActivity, profile
     per_epoch = len(tr.y) // min(cfg.batch_size, len(tr.y))
     cut = dataclasses.replace(cfg, epochs=min(cfg.epochs, -(-MLP_PROFILE_STEPS // per_epoch)))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        train_mlp(tr.x, tr.y, n_classes, cut)
-        torch.cuda.synchronize()
-    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
     steps = cut.epochs * per_epoch
-    out = {"epochs": cut.epochs, "steps": steps, "device_events": len(device)}
+    # a trace that lost device records (CUPTI drops some of the 9x512 run's
+    # ~70,000 once in a few runs) cannot be split into steps: take it again
+    short = []
+    for _ in range(MLP_PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            train_mlp(tr.x, tr.y, n_classes, cut)
+            torch.cuda.synchronize()
+        device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(device)
+                 if "softmax" in e.name.lower() and "backward" not in e.name.lower()]
+        if not device or len(marks) == steps:
+            break
+        short.append(len(marks))
+    out = {"epochs": cut.epochs, "steps": steps, "device_events": len(device),
+           "incomplete_traces": short}
     if not device:  # the profiler did not see the card
         return out
     starts = [e.time_range.start for e in device]
-    marks = [i for i, e in enumerate(device)
-             if "softmax" in e.name.lower() and "backward" not in e.name.lower()]
-    check(len(marks) == steps, f"MLP profile: {len(marks)} log-softmax kernels in {steps} steps")
+    check(len(marks) == steps, f"MLP profile: {len(marks)} log-softmax kernels in {steps} steps "
+          f"(earlier traces: {short})")
     period, busy, events = [], [], []
     for a, b in zip(marks, marks[1:]):
         window = device[a:b]
@@ -1137,9 +1470,10 @@ def phase_mlp_profile(baselines) -> dict:
 
 # -- A/B against another tree ----------------------------------------------
 def run_summary(text: str) -> dict:
-    """Each kernel's ``ms`` and uncompacted ms, and the one-shard ticks'
-    launch-phase ms, from one run's standard output."""
-    out = {"kernels": {}, "launch_ms": []}
+    """Each kernel's ``ms`` and uncompacted ms, the one-shard ticks'
+    launch-phase ms and the swap phase's swap ms and tick latencies, from
+    one run's standard output."""
+    out = {"kernels": {}, "launch_ms": [], "swap": None}
     for line in text.splitlines():
         if not line.startswith("{"):
             continue
@@ -1152,6 +1486,12 @@ def run_summary(text: str) -> dict:
                                 if r["n_shards"] == 1 for t in r["ticks"]]
         elif obj.get("phase") == "env":
             out["card"] = obj["card"]
+        elif obj.get("phase") == "swap":
+            out["swap"] = {"swap_ms": [e["swap_ms"] for e in obj["events"]],
+                           "first_post_swap_tick_ms": obj["first_post_swap_tick_ms"],
+                           "steady_tick_ms_median": obj["steady_tick_ms_median"],
+                           "boot_start_to_first_answer_ms":
+                               obj["boot"]["wall_ms"]["start_to_first_answer_ms"]}
     return out
 
 
@@ -1166,14 +1506,16 @@ def run_ab(other: str) -> int:
     per_tree: dict = {"other": [], "this": []}
     failed = 0
     for i, which in enumerate(("other", "this", "this", "other"), 1):
+        t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=trees[which],
                              capture_output=True, text=True, timeout=1200)
+        run_s = time.perf_counter() - t0
         with open(os.path.join(ROOT, "chiprun_out", f"ab{i}_{which}.txt"), "w") as f:
             f.write(res.stdout + res.stderr)
         summ = run_summary(res.stdout)
         failed += res.returncode != 0
         per_tree[which].append(summ)
-        emit({"ab": i, "tree": which, "rc": res.returncode, **summ})
+        emit({"ab": i, "tree": which, "rc": res.returncode, "run_s": run_s, **summ})
     for which, runs in per_tree.items():
         names = runs[0]["kernels"] if runs else {}
         emit({"ab": "median", "tree": which,
@@ -1181,7 +1523,8 @@ def run_ab(other: str) -> int:
               "launch_median_ms": statistics.median(
                   [v for r in runs for v in r["launch_ms"]] or [float("nan")]),
               "steady_launch_median_ms": statistics.median(
-                  [v for r in runs for v in r["launch_ms"][1:]] or [float("nan")])})
+                  [v for r in runs for v in r["launch_ms"][1:]] or [float("nan")]),
+              "swap": [r["swap"] for r in runs]})
     return 1 if failed else 0
 
 
@@ -1197,13 +1540,14 @@ def main() -> int:
     gold = golden()
     predict_launches = phase_predict(gold)
     serve_launches, timing_case, profile_case = phase_serve(gold)
+    swap_launches = phase_swap(gold)
     split = higgs_split()
     fit_launches, higgs_clf = phase_fit(gold, split)
     population_launches = {"predict": predict_launches["eval_population"], **fit_launches}
     fit_parity_case = phase_fit_parity(split)
     population_launches["toolflow"], baselines = phase_toolflow(higgs_clf, split)
-    entries = phase_timing(gold, checks, population_launches, serve_launches, timing_case,
-                           fit_parity_case)
+    entries = phase_timing(gold, checks, population_launches, serve_launches, swap_launches,
+                           timing_case, fit_parity_case)
     phase_sweep(gold)
     phase_profile(profile_case)
     phase_mlp_profile(baselines)

@@ -18,6 +18,13 @@ interface at first use, loads it with `ctypes`, and wraps each kernel:
   * a launch that CUDA refuses raises `CudaKernelError`;
   * each kernel counts its launches in ``KERNEL.launches``.
 
+The spans wrapper comes in two halves: `resolve_spans` checks a resident
+program once and fixes its launch configuration (`SpansConfig`), and
+`launch_spans` checks only the words and the launch slots, then launches.
+A serving shard's span-launch unit (`runtime/aot.py`) resolves once and
+calls only the launch half on every tick; `eval_program_spans` is the two
+in one call.
+
 The build goes to ``build/repro_torch/`` at the repository root, keyed by
 a hash of the source and flags, so an edited source rebuilds.
 """
@@ -30,6 +37,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -72,6 +80,17 @@ KERNELS = (EVAL_POPULATION, EVAL_POPULATION_SPANS)
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
+_builds = 0  # build_library calls that ran nvcc in this process
+
+
+def build_count() -> int:
+    """Calls of `build_library` that ran ``nvcc`` since the last reset."""
+    return _builds
+
+
+def reset_build_count() -> None:
+    global _builds
+    _builds = 0
 
 
 def reset_launch_counts() -> None:
@@ -101,9 +120,11 @@ def build_library() -> Path:
 
     The compiler's report (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside the library as ``.log``."""
+    global _builds
     so = library_path()
     if so.exists():
         return so
+    _builds += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
@@ -182,19 +203,21 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_program(program: CircuitProgram, x_words: torch.Tensor):
-    """Validate a program and the words for a launch; returns the program's
-    launch arguments (pointers and sizes) and the words' device."""
-    if not isinstance(program, CircuitProgram):
-        raise ValueError(f"expected a CircuitProgram, got {type(program).__name__}")
+def _words_device(x_words) -> torch.device:
     if not isinstance(x_words, torch.Tensor) or x_words.dim() != 2:
         raise ValueError("x_words must be a 2-D tensor")
+    return x_words.device
+
+
+def _check_program(program: CircuitProgram, dev) -> list:
+    """Validate a program for a launch on ``dev``; returns its launch
+    arguments (pointers and sizes)."""
+    if not isinstance(program, CircuitProgram):
+        raise ValueError(f"expected a CircuitProgram, got {type(program).__name__}")
     if program.gates.dim() != 3 or program.taps.dim() != 2:
         raise ValueError("program.gates must be 3-D and program.taps 2-D")
-    dev = x_words.device
     pop, n_l, n_r, n_out = (program.pop, program.n_gates, program.n_rows_max,
                             program.n_outputs)
-    _check("x_words", x_words, (program.n_inputs, x_words.shape[1]), dev)
     _check("program.gates", program.gates, (pop, n_l, 3), dev)
     _check("program.n_live", program.n_live, (pop,), dev)
     _check("program.rows", program.rows, (pop, n_r), dev)
@@ -202,7 +225,7 @@ def _check_program(program: CircuitProgram, x_words: torch.Tensor):
     _check("program.taps", program.taps, (pop, n_out), dev)
     ptrs = [getattr(program, k).data_ptr()
             for k in ("gates", "n_live", "rows", "n_rows", "taps")]
-    return [*ptrs, pop, n_l, n_r, n_out], dev
+    return [*ptrs, pop, n_l, n_r, n_out]
 
 
 def _launch(kernel: CudaKernel, device, *args) -> None:
@@ -225,7 +248,9 @@ def eval_program(
     x_words: torch.Tensor,    # i32[I, W]
 ) -> torch.Tensor:            # i32[P, O, W]
     """P live-gate programs over one shared packed dataset, on the card."""
-    prog_args, dev = _check_program(program, x_words)
+    dev = _words_device(x_words)
+    prog_args = _check_program(program, dev)
+    _check("x_words", x_words, (program.n_inputs, x_words.shape[1]), dev)
     n_in, w = x_words.shape
     pop, n_out = program.pop, program.n_outputs
     out = torch.empty((pop, n_out, w), dtype=torch.int32, device=dev)
@@ -234,6 +259,80 @@ def eval_program(
     _launch(
         EVAL_POPULATION, dev, *prog_args, x_words.data_ptr(), out.data_ptr(),
         n_in, w, threads_per_block(program, w, pop, _sms(dev)),
+    )
+    return out
+
+
+class SpansConfig(NamedTuple):
+    """One resident program's spans launch, resolved: everything a launch
+    passes besides the words and the launch-slot buffers."""
+
+    device: torch.device
+    program_args: tuple    # the program's pointers and sizes
+    in_width_ptr: int
+    n_inputs: int          # I_max, the words' rows
+    n_outputs: int
+    n_slots: int           # K launch slots
+    w_total: int           # the words' columns, K * span for a tick
+    span_words: int
+    sms: int
+    threads: int
+    tensors: tuple         # the program and in_width, kept alive
+
+
+def resolve_spans(
+    program: CircuitProgram,  # a shard's S resident programs
+    in_width: torch.Tensor,   # i32[S] live input rows of each circuit
+    *,
+    n_slots: int,
+    w_total: int,
+    span_words: int,
+) -> SpansConfig:
+    """Check a resident program and its input widths on their device once,
+    and fix the launch configuration of ``n_slots`` launch slots of
+    ``span_words`` words over a ``[I, w_total]`` buffer: the SM count and
+    the threads per CTA."""
+    if not isinstance(program, CircuitProgram):
+        raise ValueError(f"expected a CircuitProgram, got {type(program).__name__}")
+    dev = program.gates.device
+    prog_args = _check_program(program, dev)
+    _check("in_width", in_width, (program.pop,), dev)
+    span, w_total = int(span_words), int(w_total)
+    if not 1 <= span <= w_total:
+        raise ValueError(
+            f"span_words={span} must be in [1, {w_total}] (the buffer's words)"
+        )
+    sms = _sms(dev)
+    return SpansConfig(
+        dev, tuple(prog_args), in_width.data_ptr(), program.n_inputs,
+        program.n_outputs, int(n_slots), w_total, span, sms,
+        threads_per_block(program, span, int(n_slots), sms), (program, in_width),
+    )
+
+
+def launch_spans(
+    cfg: SpansConfig,
+    x_words: torch.Tensor,    # i32[I_max, W_total] fused multi-tenant buffer
+    slots: torch.Tensor,      # i32[K] program circuit of launch slot k
+    word_off: torch.Tensor,   # i32[K] word offset of slot k's span
+    live: torch.Tensor,       # i32[K] 0 masks slot k's inputs off
+) -> torch.Tensor:            # i32[K, O, span_words]
+    """One spans launch of a resolved program: checks only the words and
+    the launch-slot buffers, then launches."""
+    dev, k = cfg.device, cfg.n_slots
+    _check("x_words", x_words, (cfg.n_inputs, cfg.w_total), dev)
+    _check("slots", slots, (k,), dev)
+    _check("word_off", word_off, (k,), dev)
+    _check("live", live, (k,), dev)
+    out = torch.empty((k, cfg.n_outputs, cfg.span_words), dtype=torch.int32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    _launch(
+        EVAL_POPULATION_SPANS, dev, *cfg.program_args, x_words.data_ptr(),
+        slots.data_ptr(), word_off.data_ptr(), cfg.in_width_ptr,
+        live.data_ptr(), out.data_ptr(), k, cfg.n_inputs, cfg.w_total,
+        cfg.span_words, cfg.threads,
     )
     return out
 
@@ -252,28 +351,12 @@ def eval_program_spans(
     fused buffer, input rows ``>= in_width[slots[k]] * live[k]`` read as
     zero; the slot gather happens inside the kernel.  Any offset is served
     as the reference's ``dynamic_slice`` serves it (negative from the end,
-    then clamped into the buffer)."""
-    prog_args, dev = _check_program(program, x_words)
-    n_in, w_total = x_words.shape
+    then clamped into the buffer).  `resolve_spans` then `launch_spans`."""
+    dev = _words_device(x_words)
+    _check_program(program, dev)
+    _check("x_words", x_words, (program.n_inputs, x_words.shape[1]), dev)
     if not isinstance(slots, torch.Tensor) or slots.dim() != 1:
         raise ValueError("slots must be a 1-D tensor")
-    k = slots.shape[0]
-    _check("slots", slots, (k,), dev)
-    _check("word_off", word_off, (k,), dev)
-    _check("in_width", in_width, (program.pop,), dev)
-    _check("live", live, (k,), dev)
-    span = int(span_words)
-    if not 1 <= span <= w_total:
-        raise ValueError(
-            f"span_words={span} must be in [1, {w_total}] (the buffer's words)"
-        )
-    out = torch.empty((k, program.n_outputs, span), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
-        return out
-    _launch(
-        EVAL_POPULATION_SPANS, dev, *prog_args, x_words.data_ptr(),
-        slots.data_ptr(), word_off.data_ptr(), in_width.data_ptr(),
-        live.data_ptr(), out.data_ptr(), k, n_in, w_total, span,
-        threads_per_block(program, span, k, _sms(dev)),
-    )
-    return out
+    cfg = resolve_spans(program, in_width, n_slots=slots.shape[0],
+                        w_total=x_words.shape[1], span_words=span_words)
+    return launch_spans(cfg, x_words, slots, word_off, live)

@@ -27,6 +27,7 @@ evaluator's business (the spans entry point takes the widths at launch).
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -35,6 +36,22 @@ import torch
 from repro_torch.core import gates as G
 
 ZERO_GATE = G.N_OPCODES  # opcode of a gate whose output is all zeros
+
+# calls of `compile_program` in this process: the serving stack's cold
+# work, which a boot from stored span-launch units must not repeat
+_count_lock = threading.Lock()
+_compiles = 0
+
+
+def compile_count() -> int:
+    """Calls that ran `compile_program` since the last reset."""
+    return _compiles
+
+
+def reset_compile_count() -> None:
+    global _compiles
+    with _count_lock:
+        _compiles = 0
 
 
 class CircuitProgram(NamedTuple):
@@ -112,6 +129,9 @@ def compile_program(
             f"genome arrays disagree: opcodes {opc.shape}, edge_src "
             f"{edge.shape}, out_src {outs.shape}"
         )
+    global _compiles
+    with _count_lock:
+        _compiles += 1
     total = n_in + n
 
     def land(ids):  # the reference's vals[id]

@@ -10,6 +10,7 @@ port keeps its own registry.
 from repro_torch.runtime.backends import CudaBackend, TorchRefBackend  # noqa: F401
 from repro_torch.runtime.base import (  # noqa: F401
     BackendCapabilities,
+    BackendCapabilityError,
     EvalBackend,
 )
 from repro_torch.runtime.registry import (  # noqa: F401
@@ -25,6 +26,7 @@ from repro_torch.runtime.registry import (  # noqa: F401
 
 __all__ = [
     "BackendCapabilities",
+    "BackendCapabilityError",
     "CudaBackend",
     "EvalBackend",
     "NoCudaDeviceError",

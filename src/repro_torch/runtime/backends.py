@@ -3,13 +3,16 @@ hand-written CUDA kernels."""
 from __future__ import annotations
 
 from repro_torch.kernels import circuit_eval, ref
+from repro_torch.runtime import aot
 from repro_torch.runtime.base import BackendCapabilities, EvalBackend
 
 
 class TorchRefBackend(EvalBackend):
     """Plain PyTorch versions of the program entry points (`kernels/ref.py`
     ``eval_program*``): the oracle the kernels are held to, and the
-    backend of every entry point called with ``device="cpu"``."""
+    backend of every entry point called with ``device="cpu"``.  It makes
+    no span-launch units (``supports_aot=False``), as the reference's
+    ``"ref"`` makes no executables."""
 
     name = "torch-ref"
 
@@ -37,7 +40,8 @@ class CudaBackend(EvalBackend):
     """The hand-written Hopper kernels (`kernels/circuit_eval.py`).  CUDA
     tensors only: a CPU tensor, a failed build or a refused launch raises.
     Any word offset is evaluated as the plain version evaluates it, so
-    spans need no alignment."""
+    spans need no alignment.  Its span-launch units (`runtime/aot.py`)
+    store as `aot.AOT_FORMAT`."""
 
     name = "cuda"
 
@@ -48,6 +52,9 @@ class CudaBackend(EvalBackend):
             supports_spans=True,
             word_alignment=1,
             span_offset_contract="none",
+            supports_aot=True,
+            aot_format=aot.AOT_FORMAT,
+            aot_format_version=aot.AOT_FORMAT_VERSION,
         )
 
     def eval_program(self, program, x_words):

@@ -24,6 +24,8 @@ fixed (each compiles a program, then evaluates it):
 
 All backends are bit-identical on these contracts; they differ only in
 speed and in the devices they run on, which `capabilities()` describes.
+A backend that declares ``supports_aot`` also compiles a plan shard into
+a storable span-launch unit (`compile_spans`, `runtime/aot.py`).
 """
 from __future__ import annotations
 
@@ -33,6 +35,12 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.program import CircuitProgram, compile_program
+from repro_torch.runtime import aot
+
+
+class BackendCapabilityError(NotImplementedError):
+    """A backend was asked for something it declares it cannot do (a
+    span-launch unit from a backend without ``supports_aot``)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +49,10 @@ class BackendCapabilities:
 
     ``word_alignment`` is the word-axis granularity the backend needs
     (1 = none).  ``span_offset_contract`` documents the constraint on
-    ``word_off`` entries for the spans entry point.  ``supports_aot`` is
-    False for every backend of the port: it has no ahead-of-time
-    executable format yet."""
+    ``word_off`` entries for the spans entry point.  ``supports_aot``
+    declares whether `compile_spans` can make a storable span-launch unit
+    (`runtime/aot.py`); ``aot_format``/``aot_format_version`` name its
+    stored form, so an artifact store can skip payloads it cannot load."""
 
     name: str
     device_kinds: tuple[str, ...]   # e.g. ("cpu", "cuda")
@@ -51,6 +60,8 @@ class BackendCapabilities:
     word_alignment: int
     span_offset_contract: str = "none"
     supports_aot: bool = False
+    aot_format: str = ""
+    aot_format_version: int = 0
 
 
 class EvalBackend(abc.ABC):
@@ -129,6 +140,20 @@ class EvalBackend(abc.ABC):
         )
         return out[0]
 
+    def compile_spans(self, spec, shard, *, device=None) -> "aot.SpanLaunch":
+        """Compile one plan shard (a `LaunchPlan`) into its span-launch unit
+        for ``spec`` (an `aot.SpanLaunchSpec`) on ``device`` (``None``: the
+        card, raising without one): the shard's
+        program resident there and the launch resolved, so a tick's launch
+        checks only its words and launch slots.  A backend that declares
+        ``supports_aot=False`` raises `BackendCapabilityError`."""
+        if not self.capabilities().supports_aot:
+            raise BackendCapabilityError(
+                f"backend {self.name!r} declares supports_aot=False: it makes "
+                "no span-launch units; its launches run eagerly"
+            )
+        return aot.compile_span_launch(self, spec, shard, device=device)
+
     def instrument(self, hook) -> "EvalBackend":
         """Wrap this backend so every ``eval_*`` launch runs inside a
         caller-supplied context: ``hook(kind, **meta)`` returns a context
@@ -164,6 +189,11 @@ class _InstrumentedBackend(EvalBackend):
 
     def span_alignment(self, requested: int | None = None) -> int:
         return self._inner.span_alignment(requested)
+
+    def compile_spans(self, spec, shard, *, device=None):
+        # compiling is control-plane work, not a launch: uninstrumented;
+        # the tick wraps each call of the unit in its own span
+        return self._inner.compile_spans(spec, shard, device=device)
 
     # program entry points report under the kernel they reach
     def eval_program(self, program, x_words):

@@ -70,6 +70,30 @@ class TickReport:
         return sum(self.phase_s.get(p, 0.0) for p in DEVICE_PHASES)
 
 
+@dataclasses.dataclass(frozen=True)
+class RebalanceEvent:
+    """One generation-fenced plan swap (`CircuitServer.swap_plan`).
+
+    ``shards_reused`` counts new-plan shards whose device state was
+    satisfied by the content-hash cache (unchanged shards are never
+    rebuilt); ``shards_rebuilt`` counts the ones that were not.
+    ``inflight_requests`` is how many requests were queued on the server
+    across the swap — they land on the new plan at their next tick, none
+    are lost."""
+
+    action: str            # "grow" | "shrink" | "rebalance" | "swap"
+    reason: str            # the caller's human-readable trigger
+    generation: int        # catalog generation the new plan serves
+    from_shards: int
+    to_shards: int
+    shards_reused: int
+    shards_rebuilt: int
+    inflight_requests: int
+    swap_ms: float         # wall-clock install latency (fence → plan live)
+    prev_hash: str         # content hash of the plan swapped out
+    plan_hash: str         # content hash of the plan swapped in
+
+
 @dataclasses.dataclass
 class ServerStats:
     """Running aggregate over ticks (host-side, cheap).
@@ -113,6 +137,7 @@ class ServerStats:
     )
     # cumulative seconds per tick phase (see TICK_PHASES)
     phase_totals: dict = dataclasses.field(default_factory=dict)
+    rebalances: list = dataclasses.field(default_factory=list)
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False
     )
@@ -158,6 +183,10 @@ class ServerStats:
                 report.max_slots_per_launch or report.tenants,
             )
 
+    def record_rebalance(self, event: RebalanceEvent) -> None:
+        with self._lock:
+            self.rebalances.append(event)
+
     def phase_breakdown(self) -> dict:
         """Per-phase tick cost: mean ms per non-empty tick, each phase's
         share of total phase time, and the host-vs-device split.  Callers
@@ -190,6 +219,7 @@ class ServerStats:
             shard_rows = dict(self.shard_rows)
             shard_cells = dict(self.shard_cells)
             phases = self.phase_breakdown()
+            rebalances = list(self.rebalances)
         lat = np.asarray(lat or [0.0])
         occ = np.asarray(occ or [0.0])
         if len(marks) >= 2 and marks[-1][0] > marks[0][0]:
@@ -226,4 +256,14 @@ class ServerStats:
                 )
                 for s in sorted(shard_cells)
             },
+            "n_rebalances": len(rebalances),
+            "mean_swap_ms": round(
+                sum(e.swap_ms for e in rebalances)
+                / max(len(rebalances), 1), 3,
+            ),
+            "shards_reused_frac": round(
+                sum(e.shards_reused for e in rebalances)
+                / max(sum(e.shards_reused + e.shards_rebuilt
+                          for e in rebalances), 1), 4,
+            ),
         }

@@ -4,9 +4,8 @@ Request flow (one `tick()`):
 
   1. snapshot every tenant's pending float-feature rows;
   2. refresh the compiled plan (the `PlanCompiler` recompiles only when
-     the registry generation moved; each shard's live-gate program is
-     compiled and uploaded once, cached by shard content hash, so an
-     unchanged shard never re-uploads);
+     the registry generation moved; a shard's device state is cached by
+     its content hash, so an unchanged shard is never rebuilt);
   3. per tenant, run the encode→bit-pack pipeline once per ensemble
      member over all its pending requests (host numpy);
   4. fuse each plan shard's work into its own padded
@@ -17,19 +16,30 @@ Request flow (one `tick()`):
      the slot gather inside the kernel (all launches are enqueued before
      any output is read back);
   5. read back, decode each member's live output bits to class ids,
-     majority-vote ensemble members, and scatter results to the
-     originating requests.
+     majority-vote ensemble members (shadow members aside), and scatter
+     results to the originating requests.
 
-On ``device="cuda"`` every launch is the hand-written spans kernel; a
-kernel that fails to build or launch fails the tick.  Shard ``s`` runs on
+On ``device="cuda"`` every launch goes through a span-launch unit
+(`runtime/aot.py` `SpanLaunch`, one per shard content hash, span bucket
+and device): the shard's live-gate program resident on the card and the
+launch resolved once, so a tick's launch checks only its words and
+launch slots and calls the hand-written spans kernel.  A unit that cannot
+be built fails the tick; nothing drops to the plain version.  Units are
+compiled at a shard's first launch, made ahead of a plan swap by
+`prewarm_plan`/`swap_plan`, and stored and loaded through an
+`ArtifactStore` (`export_executables`, `preload_executables`), so a cold
+process boots without compiling a program.  Shard ``s`` runs on
 ``cuda:{s % torch.cuda.device_count()}`` (all on ``cuda:0`` with one
-card).  ``device="cpu"`` runs the plain version, only when asked for.
+card).  ``device="cpu"`` runs the plain version, only when asked for,
+eagerly (the reference's ``"ref"`` backend makes no executables either).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -38,7 +48,13 @@ from repro_torch import runtime
 from repro_torch.core import encoding as E
 from repro_torch.core.api import decode_predictions
 from repro_torch.kernels.program import compile_program
-from repro_torch.serve.circuits.metrics import TICK_PHASES, ServerStats, TickReport
+from repro_torch.runtime import aot
+from repro_torch.serve.circuits.metrics import (
+    TICK_PHASES,
+    RebalanceEvent,
+    ServerStats,
+    TickReport,
+)
 from repro_torch.serve.circuits.registry import CircuitRegistry
 from repro_torch.serve.observability.trace import NULL_TRACER, TraceRecorder
 from repro_torch.serve.planning import (
@@ -49,11 +65,29 @@ from repro_torch.serve.planning import (
     ensemble_vote,
 )
 
+_log = logging.getLogger("repro_torch.serve.aot")
+
+
+class StalePlanError(RuntimeError):
+    """A plan offered to `CircuitServer.swap_plan` was compiled from a
+    catalog generation the registry has since moved past — the caller
+    must re-snapshot the catalog and recompile."""
+
 
 @dataclasses.dataclass
 class _Pending:
     ticket: int
     x: np.ndarray  # float32[r, F_tenant]
+
+
+def _bucket(words: int, span_align: int) -> int:
+    span = 1 << (max(int(words), 1) - 1).bit_length()
+    return -(-span // span_align) * span_align
+
+
+def _summary() -> dict:
+    return {"loaded": 0, "compiled": 0, "trace_warmed": 0,
+            "exec_warmed": 0, "load_failures": 0, "skipped": 0}
 
 
 class CircuitServer:
@@ -66,7 +100,8 @@ class CircuitServer:
     is the declarative placement: shard count, slot assignment, and span
     alignment.  ``stable_shapes`` pads every launch to its shard's full
     slot count (idle slots masked off with ``in_width=0``), so a launch's
-    shape depends only on the span bucket and the plan.
+    shape depends only on the span bucket and the plan — what lets a
+    span-launch unit serve every tick of its shard.
     """
 
     def __init__(
@@ -97,11 +132,42 @@ class CircuitServer:
         self._pending: dict[str, list[_Pending]] = {}
         self._results: dict[int, "np.ndarray | Exception"] = {}
         self._next_ticket = 0
-        # compiled-plan cache (generation-tagged) + each shard's live-gate
-        # program and input widths on its device, keyed by content hash
+        # shadow slots: tenant → (expected member count, trailing shadow
+        # count).  When a tenant's launched member count matches the
+        # expectation, the trailing members are excluded from the decode
+        # vote and handed to `shadow_hook` instead — how a candidate
+        # scores against live traffic inside the fused launch without
+        # touching served output.  Keying on the expected count makes the
+        # exclusion race-free across the registry mutation that installs
+        # or removes the shadow member: a stale plan votes normally.
+        self._shadow: dict[str, tuple[int, int]] = {}
+        self.shadow_hook: "Callable | None" = None
+        # compiled-plan cache (generation-tagged) + each shard's device
+        # state (`_upload_shard`), keyed by content hash
         self._plan_lock = threading.Lock()
         self._compiled: CompiledPlan | None = None
         self._dev: dict[str, tuple] = {}
+        # -- span-launch units ----------------------------------------
+        # keyed by (shard content hash, span bucket, device index);
+        # compiled at a shard's first launch, by prewarm_plan, or loaded
+        # by preload_executables.  Only with stable shapes: a unit's
+        # launch shape must be a pure function of (shard, span bucket).
+        self._aot_lock = threading.Lock()
+        self._aot: dict[tuple[str, int, int], aot.SpanLaunch] = {}
+        # device state staged by prewarm_plan, consumed (and counted as
+        # rebuilt) by the next swap_plan fence
+        self._staged_dev: dict[str, tuple] = {}
+        # launch-shape signatures eager launches already ran (no-AOT
+        # backend): a repeat prewarm of the same shapes is a no-op
+        self._warm_shapes: set[tuple] = set()
+        self._spans_seen: set[int] = set()   # span buckets ticks produced
+        self._aot_capable = bool(
+            self.backend.capabilities().supports_aot
+        ) and self.stable_shapes
+        self.aot_stats = {
+            "exec_hits": 0, "compiles": 0, "loads": 0,
+            "load_failures": 0, "trace_warms": 0, "exec_warms": 0,
+        }
 
     def _launch_span(self, kind: str, **meta):
         """Launch hook handed to `EvalBackend.instrument` — one trace span
@@ -113,6 +179,10 @@ class CircuitServer:
         if self.device.type == "cuda" and self.device.index is None:
             return torch.device("cuda", shard % torch.cuda.device_count())
         return self.device
+
+    def reset_stats(self) -> None:
+        """Fresh stats window (keeps the resolved backend tag)."""
+        self.stats = ServerStats(backend=self.backend.name)
 
     # -- request interface ---------------------------------------------
     def submit(self, tenant: str, x: np.ndarray) -> int:
@@ -172,14 +242,23 @@ class CircuitServer:
                 out.append(t)
             return out
 
+    def pending_rows(self) -> int:
+        with self._lock:
+            return sum(
+                p.x.shape[0] for reqs in self._pending.values() for p in reqs
+            )
+
     # -- the compiled plan ---------------------------------------------
     def _refresh_plan(self) -> tuple[CompiledPlan, dict]:
         """Compiled plan for the current registry generation plus its
-        device-side programs, as one consistent snapshot (a
-        concurrent recompile cannot pull tensors out from under a tick in
-        flight).  Uploads are cached by shard content hash, so hot-swapping
-        one tenant re-uploads only the shards it changed.  The fast path is
-        one int comparison."""
+        shards' device state, as one consistent snapshot: a concurrent
+        recompile or plan swap replaces the dict and never mutates it, so
+        it cannot pull state out from under a tick in flight.  Device
+        state is cached by shard content hash, so hot-swapping one tenant
+        rebuilds only the shards it changed.  The fast path is one int
+        comparison; the snapshot is taken inside the plan lock so two
+        racing refreshes cannot install an older catalog's plan over a
+        newer one."""
         with self._plan_lock:
             if (self._compiled is not None
                     and self._compiled.generation == self.registry.generation):
@@ -191,18 +270,24 @@ class CircuitServer:
             dev = {
                 shard.content_hash: (
                     self._dev.get(shard.content_hash)
+                    or self._staged_dev.pop(shard.content_hash, None)
                     or self._upload_shard(shard)
                 )
                 for shard in compiled.shards
             }
             self._compiled = compiled
-            self._dev = dev  # stale shard tensors are dropped here
+            self._dev = dev  # stale shard state is dropped here
             return compiled, dev
 
     def _upload_shard(self, shard) -> tuple:
-        """A shard's resident launch inputs on its device: the live-gate
-        program of its slots and their input widths."""
+        """What a shard's launches read on its device.  Eager launches: its
+        live-gate program and input widths, compiled and copied here.  With
+        span-launch units the unit holds them (compiled or loaded at its
+        first launch, at prewarm or at preload), so a plan swap compiles
+        nothing under its fence: the entry is only the shard's device."""
         device = self.device_for(shard.shard)
+        if self._aot_capable:
+            return (device,)
         program = compile_program(shard.opcodes, shard.edge_src,
                                   shard.out_src, shard.n_inputs_max)
         in_width = torch.tensor(shard.in_width, dtype=torch.int32, device=device)
@@ -213,11 +298,369 @@ class CircuitServer:
         shards, placement, content hashes, span alignment."""
         return self._refresh_plan()[0]
 
+    def peek_plan(self) -> CompiledPlan | None:
+        """The last installed plan without compiling — possibly stale,
+        possibly None on a never-ticked server.  What a caller feeds
+        `PlanCompiler.recompile` as the stickiness hint: a stale previous
+        plan only costs placement quality, never correctness."""
+        with self._plan_lock:
+            return self._compiled
+
+    def shard_of(self, tenant: str) -> int:
+        """Home shard of a tenant under the current compiled plan."""
+        return self.plan().shard_of(tenant)
+
     def span_bucket(self, words: int) -> int:
         """The launch span for ``words`` words: the next power of two, then
-        padded to the plan's span alignment (a bounded set of shapes)."""
-        span = 1 << (max(int(words), 1) - 1).bit_length()
-        return -(-span // self.span_align) * self.span_align
+        padded to the plan's span alignment (a bounded set of shapes) —
+        the quantization `tick()` applies, so prewarm, export and the live
+        launch agree on shapes."""
+        return _bucket(words, self.span_align)
+
+    def spans_seen(self) -> tuple[int, ...]:
+        """Span buckets ticks have actually launched (ascending) — the
+        shapes worth prewarming or exporting."""
+        return tuple(sorted(self._spans_seen))
+
+    # -- span-launch units ------------------------------------------------
+    @staticmethod
+    def _dev_key(device: torch.device) -> int:
+        return -1 if device.index is None else int(device.index)
+
+    def _build_unit(self, shard, span: int, device) -> aot.SpanLaunch:
+        """A new unit for (shard, span) on ``device``: another span bucket
+        of a unit the shard already has there (its program is reused, not
+        compiled again), else the shard compiled by the backend."""
+        key = (shard.content_hash, self._dev_key(device))
+        with self._aot_lock:
+            sibling = next((u for (h, _, d), u in self._aot.items()
+                            if (h, d) == key), None)
+        if sibling is not None:
+            return sibling.respan(span)
+        return self.backend.compile_spans(aot.shard_spec(shard, span), shard,
+                                          device=device)
+
+    def _span_launch(self, shard, span: int, device) -> aot.SpanLaunch:
+        """The unit a tick launches: a cache hit, or built and cached."""
+        key = (shard.content_hash, int(span), self._dev_key(device))
+        with self._aot_lock:
+            fn = self._aot.get(key)
+            if fn is not None:
+                self.aot_stats["exec_hits"] += 1
+                return fn
+        fn = self._build_unit(shard, span, device)
+        with self._aot_lock:
+            self.aot_stats["compiles"] += 1
+            return self._aot.setdefault(key, fn)
+
+    def _load_unit(self, shard, span: int, device, store, summary: dict):
+        """The stored unit for (shard, span) on ``device``, or None when
+        the store has none or it cannot be used (the reason is logged and
+        counted; the caller compiles the shard instead, which runs the
+        same kernel)."""
+        kstr = aot.executable_key(self.backend.name, shard.content_hash, span)
+        try:
+            fn = aot.deserialize_executable(store.get_executable(kstr), device=device)
+            if fn.spec != aot.shard_spec(shard, span):
+                raise ValueError(f"spec {tuple(fn.spec)} is not the shard's")
+        except KeyError:
+            return None  # not exported for this shape
+        except (OSError, ValueError) as err:
+            summary["load_failures"] += 1
+            self.aot_stats["load_failures"] += 1
+            _log.warning("stored unit %s unusable (%s: %s); compiling the shard",
+                         kstr, type(err).__name__, err)
+            return None
+        summary["loaded"] += 1
+        self.aot_stats["loads"] += 1
+        return fn
+
+    def _dead_launch_args(self, shard, span: int, device) -> tuple:
+        """A launch of the tick's exact shapes with every slot dead (live
+        = 0): zero words, slot 0 everywhere, back-to-back offsets."""
+        k_pad = shard.n_slots
+        x = torch.zeros((shard.n_inputs_max, k_pad * span), dtype=torch.int32,
+                        device=device)
+        meta = torch.zeros((3, k_pad), dtype=torch.int32, device=device)
+        meta[1] = torch.arange(k_pad, dtype=torch.int32, device=device) * span
+        return x, meta[0], meta[1], meta[2]
+
+    def _prewarm_shard(self, shard, spans, store, summary: dict) -> None:
+        """Make every (shard, span) launch hot before it serves: load a
+        stored unit, else compile one, and run it once dead; on a backend
+        without units, run one dead eager launch per shape signature."""
+        device = self.device_for(shard.shard)
+        # stage the shard's device state now, so the swap fence reuses it
+        with self._plan_lock:
+            cached = self._dev.get(shard.content_hash)
+            if cached is None:
+                cached = self._staged_dev.get(shard.content_hash)
+        if cached is None:
+            cached = self._upload_shard(shard)
+            with self._plan_lock:
+                cached = self._staged_dev.setdefault(shard.content_hash, cached)
+        for span in spans:
+            span = int(span)
+            if self._aot_capable:
+                key = (shard.content_hash, span, self._dev_key(device))
+                with self._aot_lock:
+                    if key in self._aot:
+                        continue
+                fn = None if store is None else self._load_unit(
+                    shard, span, device, store, summary)
+                if fn is None:
+                    fn = self._build_unit(shard, span, device)
+                    summary["compiled"] += 1
+                    self.aot_stats["compiles"] += 1
+                with self._aot_lock:
+                    fn = self._aot.setdefault(key, fn)
+                # a unit's first launch pays one-time costs (the library's
+                # load, the kernel's first run) — spend them on dead
+                # inputs now, off the serving path
+                fn(*self._dead_launch_args(shard, span, device))
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                summary["exec_warmed"] += 1
+                self.aot_stats["exec_warms"] += 1
+            else:
+                sig = (shard.n_slots, int(shard.opcodes.shape[1]),
+                       int(shard.out_src.shape[1]), int(shard.n_inputs_max),
+                       span, self._dev_key(device))
+                if sig in self._warm_shapes:
+                    continue  # these shapes already ran
+                program, in_w = cached
+                x, slots, woff, live = self._dead_launch_args(shard, span, device)
+                self.backend.eval_program_spans(program, x, slots, woff, in_w,
+                                                live, span_words=span)
+                self._warm_shapes.add(sig)
+                summary["trace_warmed"] += 1
+                self.aot_stats["trace_warms"] += 1
+
+    def prewarm_plan(self, compiled: CompiledPlan, *, spans=None, store=None) -> dict:
+        """Make an incoming plan's launch shapes hot *before* it is
+        installed — the anti-dip half of a plan swap.
+
+        For every shard × span bucket: load the stored unit from ``store``
+        when one is keyed for it, else compile one (backends with units),
+        else run one dead eager launch (``"torch-ref"``).  ``spans``
+        defaults to the buckets this server's ticks have produced, so a
+        server that has never ticked prewarms nothing.  Runs outside the
+        plan lock: serving continues on the old plan while the new one
+        warms.  Returns a summary dict (loaded/compiled/trace_warmed/...).
+        """
+        summary = _summary()
+        if not self.stable_shapes:
+            # launch shapes depend on the live tenant count — nothing to warm
+            summary["skipped"] = len(compiled.shards)
+            _log.info("prewarm skipped: stable_shapes=False makes launch "
+                      "shapes traffic-dependent")
+            return summary
+        use = sorted({int(s) for s in (self._spans_seen if spans is None else spans)})
+        for shard in compiled.shards:
+            self._prewarm_shard(shard, use, store, summary)
+        return summary
+
+    def export_executables(self, store, *, spans=None) -> list[str]:
+        """Store the current plan's span-launch units in an `ArtifactStore`:
+        one per shard × span bucket, keyed by ``(backend, shard content
+        hash, span bucket)``.  ``spans`` defaults to the buckets ticks have
+        produced (else the smallest).  A backend without units stores
+        nothing and logs why.  Returns the stored keys."""
+        caps = self.backend.capabilities()
+        if not caps.supports_aot:
+            _log.info("backend %r declares supports_aot=False: no units "
+                      "exported, a boot from this store compiles", self.backend.name)
+            return []
+        if not self.stable_shapes:
+            _log.info("stable_shapes=False: launch shapes are traffic-dependent, "
+                      "no units exported")
+            return []
+        plan = self.plan()
+        use = sorted({int(s) for s in (self._spans_seen if spans is None else spans)}
+                     ) or [self.span_bucket(1)]
+        keys = []
+        for shard in plan.shards:
+            device = self.device_for(shard.shard)
+            for span in use:
+                key = (shard.content_hash, span, self._dev_key(device))
+                with self._aot_lock:
+                    fn = self._aot.get(key)
+                if fn is None:
+                    fn = self._build_unit(shard, span, device)
+                    with self._aot_lock:
+                        self.aot_stats["compiles"] += 1
+                        fn = self._aot.setdefault(key, fn)
+                kstr = aot.executable_key(self.backend.name, shard.content_hash, span)
+                store.put_executable(
+                    kstr, aot.serialize_executable(fn),
+                    backend=self.backend.name, aot_format=caps.aot_format,
+                    aot_format_version=caps.aot_format_version, spec=tuple(fn.spec),
+                )
+                keys.append(kstr)
+        return keys
+
+    def preload_executables(self, store) -> dict:
+        """Boot-time half of `export_executables`: load every stored unit
+        that matches the current plan's shard hashes (and this
+        backend/format) into the launch cache — **no program compiled**
+        when the store covers the plan.  Mismatched or broken entries
+        compile instead, with the reason logged.  Returns the prewarm
+        summary."""
+        plan = self.plan()
+        caps = self.backend.capabilities()
+        spans_by_hash: dict[str, set[int]] = {}
+        prefix = f"{self.backend.name}--"
+        for kstr, entry in store.executable_entries().items():
+            if entry.get("backend") != self.backend.name:
+                continue
+            if (entry.get("format") != caps.aot_format
+                    or int(entry.get("format_version", 0)) > caps.aot_format_version):
+                _log.warning(
+                    "stored unit %s has format %s v%s; this backend reads "
+                    "%s v<=%s — skipped (will compile)", kstr, entry.get("format"),
+                    entry.get("format_version"), caps.aot_format,
+                    caps.aot_format_version,
+                )
+                continue
+            if not kstr.startswith(prefix) or "--s" not in kstr:
+                continue
+            body, span_s = kstr[len(prefix):].rsplit("--s", 1)
+            spans_by_hash.setdefault(body, set()).add(int(span_s))
+        summary = _summary()
+        for shard in plan.shards:
+            spans = sorted(spans_by_hash.get(shard.content_hash, ()))
+            if not spans:
+                continue
+            self._spans_seen.update(spans)
+            self._prewarm_shard(shard, spans, store, summary)
+        return summary
+
+    def swap_plan(
+        self,
+        compiled: CompiledPlan,
+        *,
+        compiler: PlanCompiler | None = None,
+        action: str = "swap",
+        reason: str = "",
+        prewarm: bool = True,
+        store=None,
+    ) -> RebalanceEvent:
+        """Generation-fenced atomic plan swap.
+
+        Installs an externally compiled plan (a rebalanced, grown or
+        shrunk one from `PlanCompiler.recompile`, or an exported layout
+        from `compile_from_placement`) in place of the server's own.  The
+        fence: the plan must have been compiled from the registry's
+        *current* generation, else `StalePlanError` — the caller
+        re-snapshots the catalog and recompiles, so a swap can never roll
+        back a concurrent registry mutation.
+
+        The swap is atomic against serving: a tick in flight keeps its own
+        plan snapshot and device-state dict to the end; requests queued
+        across the swap land on the new plan at their next tick.  Unchanged
+        shards keep their device state (`RebalanceEvent.shards_reused`
+        counts them).  ``compiler`` (when given) becomes the server's
+        compiler, so the swapped policy — shard count, assignment, span
+        alignment — also governs later generation-triggered refreshes;
+        shard devices follow the shard index (`device_for`).
+
+        ``prewarm`` (default on) makes the incoming plan's launch shapes
+        hot *before* the fence on a backend with span-launch units: units
+        load from ``store`` or compile while serving continues on the old
+        plan, so the first post-swap tick builds nothing.  A backend
+        without units warms at its first tick (or an explicit
+        `prewarm_plan`) instead.
+        """
+        # fast-fail the fence before spending prewarm work on a plan that
+        # is already stale (the lock re-checks authoritatively)
+        if compiled.generation != self.registry.generation:
+            raise StalePlanError(
+                f"plan compiled at generation {compiled.generation}, "
+                f"registry is at {self.registry.generation}"
+            )
+        prewarm_summary = None
+        if prewarm and self._aot_capable:
+            prewarm_summary = self.prewarm_plan(compiled, store=store)
+        t0 = time.perf_counter()
+        with self._plan_lock:
+            if compiled.generation != self.registry.generation:
+                raise StalePlanError(
+                    f"plan compiled at generation {compiled.generation}, "
+                    f"registry is at {self.registry.generation}"
+                )
+            prev = self._compiled
+            if compiler is not None:
+                self.compiler = compiler
+                self.policy = compiler.policy
+                self.span_align = compiler.span_align
+            reused = rebuilt = 0
+            dev: dict[str, tuple] = {}
+            for shard in compiled.shards:
+                cached = self._dev.get(shard.content_hash)
+                if cached is None:
+                    # a prewarm-staged entry still counts as rebuilt — the
+                    # work happened for this swap, just earlier
+                    rebuilt += 1
+                    cached = self._staged_dev.pop(shard.content_hash, None)
+                    if cached is None:
+                        cached = self._upload_shard(shard)
+                else:
+                    reused += 1
+                dev[shard.content_hash] = cached
+            self._compiled = compiled
+            self._dev = dev
+            self._staged_dev.clear()
+            with self._lock:
+                inflight = sum(len(reqs) for reqs in self._pending.values())
+        event = RebalanceEvent(
+            action=action,
+            reason=reason,
+            generation=compiled.generation,
+            from_shards=prev.n_shards if prev is not None else 0,
+            to_shards=compiled.n_shards,
+            shards_reused=reused,
+            shards_rebuilt=rebuilt,
+            inflight_requests=inflight,
+            swap_ms=(time.perf_counter() - t0) * 1e3,
+            prev_hash=prev.content_hash if prev is not None else "",
+            plan_hash=compiled.content_hash,
+        )
+        self.stats.record_rebalance(event)
+        # plan swaps land as instants on the shared timeline, next to the
+        # request spans and tick phases they interleave with
+        self.tracer.instant(
+            "plan.swap", cat="autoscale", track="autoscale",
+            action=action, reason=reason,
+            from_shards=event.from_shards, to_shards=event.to_shards,
+            shards_reused=reused, shards_rebuilt=rebuilt,
+            inflight=inflight, swap_ms=round(event.swap_ms, 3),
+            generation=event.generation,
+            **({"prewarm_" + k: v for k, v in prewarm_summary.items() if v}
+               if prewarm_summary else {}),
+        )
+        return event
+
+    # -- shadow slots ----------------------------------------------------
+    def set_shadow(self, tenant: str, n_members: int, n_shadow: int) -> None:
+        """Mark the trailing ``n_shadow`` of the tenant's ``n_members``
+        ensemble members as hidden shadow slots: they launch and decode
+        like any member, but are excluded from the served vote and
+        delivered to ``shadow_hook(tenant, shadow_ids, served_ids)``
+        instead.  The exclusion only applies to launches whose member
+        count equals ``n_members``, so the caller can set this *before*
+        the registry mutation that adds the shadow member — a tick on the
+        pre-mutation plan votes normally."""
+        if not (0 < n_shadow < n_members):
+            raise ValueError(
+                f"need 0 < n_shadow < n_members, got ({n_shadow}, {n_members})"
+            )
+        self._shadow[tenant] = (int(n_members), int(n_shadow))
+
+    def clear_shadow(self, tenant: str) -> None:
+        self._shadow.pop(tenant, None)
+
+    def shadow_of(self, tenant: str) -> "tuple[int, int] | None":
+        return self._shadow.get(tenant)
 
     # -- the fused tick ------------------------------------------------
     def tick(self) -> TickReport:
@@ -242,7 +685,11 @@ class CircuitServer:
 
     def _tick(self, t0, perf, phase, batch) -> TickReport:
         tracer = self.tracer
+        # plan, device state and span alignment are one snapshot: a
+        # concurrent swap_plan re-points the live attributes, but this
+        # tick launches entirely on what it read here
         plan, dev = self._refresh_plan()
+        span_align = plan.span_align if plan.shards else self.span_align
 
         # Encode each tenant's pending rows once per ensemble member.
         entries = []
@@ -312,7 +759,7 @@ class CircuitServer:
         for shard_idx in sorted(shard_work):
             shard = plan.shards[shard_idx]
             items = shard_work[shard_idx]
-            span = self.span_bucket(max(E.n_words(e["rows"]) for _, _, e, _ in items))
+            span = _bucket(max(E.n_words(e["rows"]) for _, _, e, _ in items), span_align)
             k_active = len(items)
             k_pad = shard.n_slots if self.stable_shapes else k_active
             t1 = perf()
@@ -326,20 +773,37 @@ class CircuitServer:
             meta[0, :k_active] = [it[0] for it in items]
             meta[1] = np.arange(k_pad) * span
             meta[2, :k_active] = 1
-            program, in_w = dev[shard.content_hash]
             device = self.device_for(shard_idx)
             phase["pack"] += perf() - t1  # fused-buffer fill
             t1 = perf()
             with tracer.span("tick.device_put", cat="tick", shard=shard_idx):
                 x_dev = torch.from_numpy(x_buf.view(np.int32)).to(device)
                 meta_dev = torch.from_numpy(meta).to(device)
+            self._spans_seen.add(span)
             t2 = perf()
             with tracer.span("tick.launch", cat="tick", shard=shard_idx,
                              span_words=span, slots=k_active):
-                out = self._exec.eval_program_spans(
-                    program, x_dev, meta_dev[0], meta_dev[1], in_w,
-                    meta_dev[2], span_words=span,
-                )
+                if self._aot_capable:
+                    # the shard's unit: a cache hit, or built now — a unit
+                    # that cannot be built fails the tick
+                    fn = self._span_launch(shard, span, device)
+                    with self._launch_span("eval_population_spans",
+                                           population=k_pad, span_words=span,
+                                           aot=True):
+                        out = fn(x_dev, meta_dev[0], meta_dev[1], meta_dev[2])
+                else:
+                    program, in_w = dev[shard.content_hash]
+                    out = self._exec.eval_program_spans(
+                        program, x_dev, meta_dev[0], meta_dev[1], in_w,
+                        meta_dev[2], span_words=span,
+                    )
+                    if self.stable_shapes:
+                        # these shapes just ran: prewarm can skip them
+                        self._warm_shapes.add((
+                            shard.n_slots, int(shard.opcodes.shape[1]),
+                            int(shard.out_src.shape[1]),
+                            int(shard.n_inputs_max), span, self._dev_key(device),
+                        ))
             phase["device_put"] += t2 - t1
             phase["launch"] += perf() - t2
             launches.append((shard_idx, span, items, out))
@@ -369,9 +833,21 @@ class CircuitServer:
         t1 = perf()
         with tracer.span("tick.decode", cat="tick"):
             for entry in entries:
-                ids = ensemble_vote(
-                    np.stack(entry["member_ids"]), entry["n_classes"]
-                )
+                member_ids = entry["member_ids"]
+                shadow = self._shadow.get(entry["tenant"])
+                n_sh = 0
+                if shadow is not None and shadow[0] == len(member_ids):
+                    n_sh = shadow[1]
+                ids = ensemble_vote(np.stack(member_ids[:len(member_ids) - n_sh]),
+                                    entry["n_classes"])
+                if n_sh and self.shadow_hook is not None:
+                    try:
+                        self.shadow_hook(entry["tenant"],
+                                         member_ids[len(member_ids) - n_sh:], ids)
+                    except Exception:  # noqa: BLE001 — a scoring fault must
+                        # never fail the serving path; it is logged
+                        _log.exception("shadow hook failed for tenant %r",
+                                       entry["tenant"])
                 offsets = entry["offsets"]
                 for p, lo, hi in zip(entry["reqs"], offsets[:-1], offsets[1:]):
                     self._results[p.ticket] = ids[lo:hi]

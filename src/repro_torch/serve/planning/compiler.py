@@ -17,6 +17,7 @@ import numpy as np
 
 from repro_torch import runtime
 from repro_torch.core.api import ServableCircuit
+from repro_torch.runtime.aot import executable_key
 from repro_torch.serve.planning.plan import (
     Catalog,
     CompiledPlan,
@@ -271,6 +272,104 @@ class PlanCompiler:
             span_align=self.span_align,
             content_hash=self._hash([sh.content_hash for sh in shards]),
         )
+
+    def compile_from_placement(
+        self,
+        catalog: Catalog,
+        placement: "dict[str, list] | None",
+        n_shards: int,
+    ) -> CompiledPlan:
+        """Rebuild the *exact* plan an exporter was serving.
+
+        ``placement`` maps tenant → one ``(shard, slot)`` pair per member
+        (JSON round-trip friendly: lists work too) — typically the
+        serialized ``plan.placement`` of a live server, which may be a
+        sticky-recompiled layout no fresh `compile` would reproduce.
+        Reconstructing it verbatim is what makes artifact boot exact:
+        identical slot order → byte-identical shard content hashes → the
+        stored span-launch units keyed on them actually match.
+
+        Raises ValueError when the placement does not cover the catalog
+        exactly (missing/extra members, non-contiguous slots) — boot
+        paths treat that as "fall back to a fresh compile" and log it.
+        """
+        if placement is None:
+            raise ValueError("no placement recorded")
+        by_member = {
+            (t, m): sc
+            for t, members in zip(catalog.tenants, catalog.members)
+            for m, sc in enumerate(members)
+        }
+        slotted: dict[int, dict[int, tuple[str, int, ServableCircuit]]] = {}
+        seen = set()
+        for tenant, refs in placement.items():
+            for m, ref in enumerate(refs):
+                sc = by_member.get((tenant, m))
+                if sc is None:
+                    raise ValueError(
+                        f"placement names ({tenant!r}, member {m}) which is "
+                        "not in the catalog"
+                    )
+                seen.add((tenant, m))
+                s, slot = int(ref[0]), int(ref[1])
+                if not 0 <= s < n_shards:
+                    raise ValueError(
+                        f"placement puts {tenant!r} on shard {s} of a "
+                        f"{n_shards}-shard plan"
+                    )
+                if slot in slotted.setdefault(s, {}):
+                    raise ValueError(
+                        f"placement assigns shard {s} slot {slot} twice"
+                    )
+                slotted[s][slot] = (tenant, m, sc)
+        if seen != set(by_member):
+            missing = sorted(set(by_member) - seen)
+            raise ValueError(f"placement misses catalog members {missing}")
+        per_shard_entries: list[list[tuple[str, int, ServableCircuit]]] = []
+        out_placement: dict[str, list[SlotRef | None]] = {
+            t: [None] * len(ms)
+            for t, ms in zip(catalog.tenants, catalog.members)
+        }
+        for s in range(n_shards):
+            slots_here = slotted.get(s, {})
+            if sorted(slots_here) != list(range(len(slots_here))):
+                raise ValueError(
+                    f"shard {s} slots are not contiguous: {sorted(slots_here)}"
+                )
+            if not slots_here:
+                raise ValueError(f"shard {s} has no slots")
+            entries = [slots_here[k] for k in range(len(slots_here))]
+            for k, (t, m, _) in enumerate(entries):
+                out_placement[t][m] = SlotRef(s, k)
+            per_shard_entries.append(entries)
+        shards = tuple(
+            self._build_shard(s, entries, catalog.generation)
+            for s, entries in enumerate(per_shard_entries)
+        )
+        return CompiledPlan(
+            shards=shards,
+            placement={t: tuple(refs) for t, refs in out_placement.items()},
+            generation=catalog.generation,
+            span_align=self.span_align,
+            content_hash=self._hash([sh.content_hash for sh in shards]),
+        )
+
+    def executable_keys(
+        self, plan: CompiledPlan, spans
+    ) -> "dict[str, tuple[int, int]]":
+        """Cache key of every (shard, span bucket) launch unit this plan
+        can dispatch: key → ``(shard index, span_words)``.  Keys follow
+        `repro_torch.runtime.aot.executable_key` — ``(backend, shard
+        content hash, span bucket)`` — so they are stable across processes
+        and restarts; exporters store units under them and booting hosts
+        look them up."""
+        return {
+            executable_key(
+                self.backend.name, shard.content_hash, int(span)
+            ): (shard.shard, int(span))
+            for shard in plan.shards
+            for span in spans
+        }
 
     def _build_shard(
         self,

@@ -41,7 +41,9 @@ def test_port_has_modules():
                  "repro_torch.core.evolve", "repro_torch.core.fitness",
                  "repro_torch.core.mutate", "repro_torch.core.netlist",
                  "repro_torch.core.verilog", "repro_torch.core.hardware",
-                 "repro_torch.core.baselines.gbdt", "repro_torch.core.baselines.mlp"):
+                 "repro_torch.core.baselines.gbdt", "repro_torch.core.baselines.mlp",
+                 "repro_torch.runtime.aot", "repro_torch.serve.artifacts",
+                 "repro_torch.serve.artifacts.store"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 

@@ -285,7 +285,12 @@ def test_backend_registry_and_capabilities():
     for name in ("torch-ref", "cuda"):
         caps = runtime.get_backend(name).capabilities()
         assert caps.word_alignment == 1 and caps.span_offset_contract == "none"
-        assert caps.supports_spans and not caps.supports_aot
+        assert caps.supports_spans
+        # only the kernels make span-launch units, as only the reference's
+        # compiled backend makes executables
+        assert caps.supports_aot == (name == "cuda")
+        assert (caps.aot_format, caps.aot_format_version) == (
+            ("repro-torch-span-launch", 1) if name == "cuda" else ("", 0))
         assert runtime.get_backend(name).span_alignment() == 1
     assert runtime.backend_for(torch.device("cpu")).name == "torch-ref"
     assert runtime.backend_for(torch.device("cuda")).name == "cuda"

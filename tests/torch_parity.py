@@ -7,6 +7,8 @@ packages (their PRNG streams differ by design).
 """
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
 import torch
@@ -75,3 +77,46 @@ def make_ref_servable(
     return RefServable(
         spec, ref_init_genome(jax.random.key(seed), spec), enc, n_classes
     )
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_golden")
+# (features, bits/input, gates, classes) of the serving parity tenants
+SERVE_TENANTS = [(4, 2, 40, 2), (7, 4, 80, 3), (3, 2, 25, 4), (10, 4, 120, 5)]
+ENSEMBLE = [(7, 2, 30, 3), (7, 4, 50, 3), (7, 2, 64, 3)]
+
+
+def golden_pair(name: str):
+    """A reference-fitted golden bundle loaded by each package."""
+    from repro.core.api import load_servable as ref_load
+    from repro_torch.core.api import load_servable
+
+    path = os.path.join(GOLDEN, f"{name}.circuit.npz")
+    return ref_load(path), load_servable(path)
+
+
+def serving_registries():
+    """The same tenants in both packages' registries: four synthetic
+    reference circuits, both golden bundles and a 3-member ensemble."""
+    from repro.serve.circuits import CircuitRegistry as RefRegistry
+    from repro_torch.serve.circuits import CircuitRegistry
+
+    ref, port = RefRegistry(), CircuitRegistry()
+    for i, shape in enumerate(SERVE_TENANTS):
+        sc = make_ref_servable(i, *shape)
+        ref.add(f"t{i}", sc)
+        port.add(f"t{i}", to_port(sc))
+    for name in ("higgs", "led"):
+        a, b = golden_pair(name)
+        ref.add(name, a)
+        port.add(name, b)
+    members = [make_ref_servable(10 + k, *s, strategy=("quantize", "quantile", "gray")[k])
+               for k, s in enumerate(ENSEMBLE)]
+    ref.add_ensemble("ens", members)
+    port.add_ensemble("ens", [to_port(m) for m in members])
+    return ref, port
+
+
+def rows_for(reg, tenant: str, seed: int, n: int) -> np.ndarray:
+    """``n`` seeded float rows of a tenant's feature width."""
+    f = reg.get(tenant).encoder.n_features
+    return np.random.RandomState(seed).randn(n, f).astype(np.float32)
