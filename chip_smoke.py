@@ -52,6 +52,34 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 The line has every event, the prewarms, `aot_stats`, the
                 first post-swap tick beside the steady median, the boot's
                 wall ms by step and the launch counts.
+  4c. async   — the deadline-aware front end (`AsyncCircuitServer`) over the
+                serve registry at one shard, prewarmed, its tenants cycling
+                the reference bench's tight / standard / relaxed deadline
+                tiers scaled by 8: open-loop Poisson traffic at 40
+                requests/s for 3 s (1 + Poisson(8) rows each), drawn up
+                front and replayed on the wall clock through `enqueue`
+                with the background scheduler thread firing; then the one-call
+                facade, ``async with golden.serve_async()`` and
+                ``asyncio.gather`` over the golden higgs rows in chunks.
+                Every future resolves once with predict's ids (the golden
+                ones: the committed ids), the miss rate is 0.0, spans
+                launches equal the fires times the shards with work, and
+                the scheduler thread raises no warning.  The line has
+                `FrontendStats.report()`, the first fire's latency beside
+                the median, and the tick phase medians.
+  4d. autoscale — `AutoscaleController` over the front end at 2 shards
+                (`HysteresisPolicy(patience=1, cooldown_s=0.2,
+                max_shards=3, device_cap=3, imbalance_high=1.3)`: the card
+                count is 1, so the cap is explicit and up to three shards
+                time-share the card): skewed open-loop traffic (85 % onto
+                shard 0's tenants) at 60 requests/s for 4 s, a control step
+                every 0.12 s, a scripted grow 2 → 3 and shrink 3 → 2, and a
+                thread adding and removing a golden bundle under a new
+                name, twice.  At least one organic rebalance and 3 events;
+                every admitted future resolves once, only the churned
+                tenant's may fail, the served ids equal predict; the
+                scheduler holds an EWMA for every shard of each new plan;
+                spans launches equal the ticks' plus the swaps' prewarm.
   5. fit      — `AutoTinyClassifier(n_gates=300, λ=4, κ=300, G=2000)` over
                 the four default encodings on higgs (98,050 rows, 80/20
                 train/test split: W = 2,452 words of training rows), on
@@ -102,9 +130,10 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 share of an unprofiled step.
 
 Launch counts are set to 0 just before each main-path phase (3, 4, 4b,
-5 and 10: the fits, then each fitted classifier's predict and its
-netlist check; in 4b before each tick, swap and the boot) and read just
-after; a kernel of the path that did not launch fails the run.
+4c, 4d, 5 and 10: the fits, then each fitted classifier's predict and its
+netlist check; in 4b before each tick, swap and the boot; in 4c before
+the traffic and before the facade) and read just after; a kernel of the
+path that did not launch fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -117,6 +146,7 @@ post-swap and the steady tick latency), then the medians per tree.
 """
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import os
@@ -125,7 +155,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -156,8 +188,11 @@ from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels.program import compile_program  # noqa: E402
 from repro_torch.runtime import aot  # noqa: E402
 from repro_torch.serve.artifacts import ArtifactStore  # noqa: E402
+from repro_torch.serve.async_frontend import AsyncCircuitServer  # noqa: E402
+from repro_torch.serve.autoscale import (  # noqa: E402
+    AutoscaleController, AutoscaleDecision, HysteresisPolicy)
 from repro_torch.serve.circuits import (  # noqa: E402
-    CircuitRegistry, CircuitServer, StalePlanError)
+    CircuitRegistry, CircuitServer, StalePlanError, TenantQoS)
 from repro_torch.serve.planning import PlacementPolicy, PlanCompiler, ensemble_vote  # noqa: E402
 
 GOLDEN = os.path.join(ROOT, "tests", "torch_golden")
@@ -204,6 +239,23 @@ GBDT_CFG = GBDTConfig(n_rounds=40)  # fig9_11_baselines.py's quick setting
 # the paper's Table 2 values the cost model is calibrated to (FlexIC XGBoost)
 PAPER_TABLE2 = {"xgb_blood_flexic_area_mm2": 5.4, "xgb_led_flexic_area_mm2": 27.74,
                 "xgb_blood_flexic_power_mw": 4.12}
+# the async front end: the reference bench's deadline tiers
+# (benchmarks/serve_async.py), cycled over the tenants and scaled by 8 as
+# the verify skill's CI leg runs it (--deadline-scale 8 --qps 40); open-loop
+# Poisson arrivals, each request 1 + Poisson(8) rows
+ASYNC_TIERS = (("tight", 0.150), ("standard", 0.400), ("relaxed", 1.500))
+ASYNC_SCALE, ASYNC_QPS, ASYNC_S, ASYNC_MEAN_ROWS = 8.0, 40.0, 3.0, 8
+PREWARM_SPANS = (1, 2, 4, 8)  # the span buckets such traffic fires at
+FACADE_CHUNK = 4096           # golden higgs rows per serve_async request
+# autoscale: benchmarks/serve_autoscale.py's load (1 + Poisson(4) rows,
+# 2.5 s deadline, 85 % skew onto shard 0's tenants, a control step every
+# 0.12 s) at 60 requests/s for 4 s, with a scripted grow and shrink and a
+# churned golden bundle
+AUTOSCALE_QPS, AUTOSCALE_S, AUTOSCALE_MEAN_ROWS = 60.0, 4.0, 4
+AUTOSCALE_DEADLINE_S, AUTOSCALE_SKEW, CONTROL_INTERVAL_S = 2.5, 0.85, 0.12
+SCRIPTED_SWAPS = ((1.5, AutoscaleDecision("grow", 3, "scripted grow to 3")),
+                  (3.0, AutoscaleDecision("shrink", 2, "scripted shrink to 2")))
+CHURN_AT_S = ((0.5, "add"), (1.3, "remove"), (2.1, "add"), (2.9, "remove"))
 
 
 class SmokeFailure(RuntimeError):
@@ -832,6 +884,309 @@ def phase_swap(gold) -> dict:
             "boot": boot["launches"]["eval_population_spans"]}
 
 
+# -- phases 4c and 4d: the async front end and autoscale ---------------------
+def poisson_schedule(rng, weights: dict, qps, duration_s, mean_rows, sources) -> list:
+    """Open-loop arrivals drawn up front: ``(t, tenant, first row, rows)``,
+    a Poisson process at ``qps`` in all, each request's tenant drawn by
+    ``weights`` and its 1 + Poisson(``mean_rows``) rows cut from the
+    tenant's source rows."""
+    tenants = list(weights)
+    p = np.array([weights[t] for t in tenants], np.float64)
+    p /= p.sum()
+    out, t = [], 0.0
+    while True:
+        t += float(rng.exponential(1.0 / qps))
+        if t >= duration_s:
+            return out
+        tenant = tenants[int(rng.choice(len(tenants), p=p))]
+        rows = 1 + int(rng.poisson(mean_rows))
+        lo = int(rng.randint(0, len(sources[tenant][0]) - rows))
+        out.append((t, tenant, lo, rows))
+
+
+def replay(fe, schedule, sources, on_time=None) -> tuple:
+    """Replay ``schedule`` on the wall clock through ``fe.enqueue`` (the
+    background scheduler thread fires); ``on_time(elapsed)`` runs before each
+    arrival.  Returns the admitted ``(tenant, lo, rows, future)`` and the
+    tenants turned away at the door (unknown: churned away)."""
+    admitted, refused = [], []
+    t0 = time.monotonic()
+    for t, tenant, lo, rows in schedule:
+        if on_time is not None:
+            on_time(time.monotonic() - t0)
+        delay = t0 + t - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        try:
+            fut = fe.enqueue(tenant, sources[tenant][0][lo:lo + rows])
+        except KeyError:
+            refused.append(tenant)
+            continue
+        admitted.append((tenant, lo, rows, fut))
+    return admitted, refused
+
+
+def future_mismatches(admitted, sources, members, may_fail=()) -> dict:
+    """Every admitted future must be resolved; a failed one is allowed only
+    for tenants in ``may_fail`` (churned away).  The served ones are held
+    to ``members``' vote by predict on the card (and the golden tenants to
+    the committed ids)."""
+    served, failed = [], 0
+    for tenant, lo, rows, fut in admitted:
+        check(fut.done(), f"a future of {tenant} was never resolved")
+        err = fut.exception(0)
+        if err is not None:
+            check(tenant in may_fail and isinstance(err, KeyError),
+                  f"a request of {tenant} failed: {type(err).__name__}: {err}")
+            failed += 1
+            continue
+        served.append((tenant, lo, rows, fut.result(0)))
+    work = [(t, lo, n) for t, lo, n, _ in served]
+    expect = expected_ids(work, sources, {t: members[t] for t in {w[0] for w in work}})
+    seen = {t: 0 for t in expect}
+    bad = gold_bad = 0
+    for tenant, lo, rows, got in served:
+        want = expect[tenant][seen[tenant]]
+        seen[tenant] += 1
+        bad += int(got.shape != want.shape or (got != want).any())
+        gold_ids = sources[tenant][1]
+        if gold_ids is not None:
+            gold_bad += int((got != gold_ids[lo:lo + rows]).any())
+    return {"served": len(served), "failed": failed, "mismatches": bad,
+            "golden_mismatches": gold_bad}
+
+
+def record_ticks(server) -> list:
+    """Every `TickReport` the server's ticks make from now on (each front
+    end fire is one `step`, which is one tick)."""
+    reports, tick = [], server.tick
+
+    def recorded():
+        report = tick()
+        reports.append(report)
+        return report
+
+    server.tick = recorded
+    return reports
+
+
+def tick_summary(reports) -> dict:
+    lat = [r.latency_s * 1e3 for r in reports if r.launches]
+    return {"ticks": len(reports),
+            "fire_ms": lat if len(lat) <= 32 else None,
+            "first_fire_ms": lat[0] if lat else None,
+            "median_fire_ms": statistics.median(lat) if lat else None,
+            "phase_median_ms": {p: statistics.median(r.phase_s[p] * 1e3 for r in reports)
+                                for p in reports[0].phase_s} if reports else {}}
+
+
+def thread_warnings(caught) -> list:
+    return [str(w.message)[:2000] for w in caught if issubclass(w.category, RuntimeWarning)]
+
+
+def phase_async(gold) -> dict:
+    """The deadline-aware front end on the card (phase 4c of the module
+    doc): Poisson traffic over the serve registry through the background
+    scheduler thread, then the one-call `serve_async` facade from asyncio."""
+    reg, sources = build_registry(gold)
+    members = {t: reg.members(t) for t in reg}
+    for i, t in enumerate(reg):
+        _, d = ASYNC_TIERS[i % len(ASYNC_TIERS)]
+        reg.set_qos(t, TenantQoS(max_batch=256, max_wait_s=0.25 * d * ASYNC_SCALE,
+                                 default_deadline_s=d * ASYNC_SCALE))
+    t_phase = time.perf_counter()
+    server = CircuitServer(reg, device=DEVICE)
+    prewarm = server.prewarm_plan(server.plan(), spans=PREWARM_SPANS)
+    rng = np.random.RandomState(SEED + 6)
+    schedule = poisson_schedule(rng, {t: 1.0 for t in reg}, ASYNC_QPS, ASYNC_S,
+                                ASYNC_MEAN_ROWS, sources)
+    fe = AsyncCircuitServer(server)
+    reports = record_ticks(server)
+    circuit_eval.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with fe:  # the exit stops the scheduler thread and drains
+            admitted, refused = replay(fe, schedule, sources)
+        traffic = launch_counts()
+    report = fe.stats.report()
+    out = {"phase": "async", "card": gpu_line(), "tenants": len(reg),
+           "offered": len(schedule), "prewarm": prewarm, "frontend": report,
+           "fires": tick_summary(reports), "launches": traffic,
+           "thread_warnings": thread_warnings(caught)}
+    check(not out["thread_warnings"], f"async: the scheduler thread warned: "
+          f"{out['thread_warnings'][:1]}")
+    check(not refused and report["rejected"] == 0, f"async: {len(refused)} requests refused")
+    out["ids"] = future_mismatches(admitted, sources, members)
+    check(out["ids"]["served"] == len(admitted) == report["completed"],
+          f"async: {out['ids']} for {len(admitted)} admitted, {report['completed']} completed")
+    check(out["ids"]["mismatches"] == 0 and out["ids"]["golden_mismatches"] == 0,
+          f"async: ids differ from predict: {out['ids']}")
+    check(report["miss_rate"] == 0.0, f"async: miss rate {report['miss_rate']}")
+    shard_fires = sum(report["shard_fires"].values())
+    check(traffic["eval_population_spans"] == shard_fires == server.stats.launches
+          and traffic["eval_population"] == 0,
+          f"async: {traffic} for {report['fires']} fires on {shard_fires} shards with work")
+    # the one-call facade: golden higgs rows in chunks, from a coroutine
+    sc, ds, ids = gold["higgs"]
+    chunks = [ds.x[lo:lo + FACADE_CHUNK] for lo in range(0, ds.n_rows, FACADE_CHUNK)]
+
+    async def facade():
+        async with sc.serve_async() as afe:
+            got = await asyncio.gather(*(afe.submit("default", x, deadline_s=60.0)
+                                         for x in chunks))
+            return afe, got
+
+    circuit_eval.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        afe, got = asyncio.run(facade())
+        facade_s = time.perf_counter() - t0
+        counts = launch_counts()
+    frep = afe.stats.report()
+    bad = int((np.concatenate(got) != ids).sum())
+    out["facade"] = {"requests": len(chunks), "rows": ds.n_rows, "wall_s": facade_s,
+                     "golden_mismatches": bad, "frontend": frep, "launches": counts,
+                     "thread_warnings": thread_warnings(caught)}
+    check(not out["facade"]["thread_warnings"], "async facade: the scheduler thread warned")
+    check(bad == 0, f"async facade: {bad} ids differ from the committed golden ids")
+    check(frep["completed"] == len(chunks) and frep["miss_rate"] == 0.0,
+          f"async facade: {frep}")
+    check(counts["eval_population_spans"] == frep["fires"] == afe.server.stats.launches,
+          f"async facade: {counts} for {frep['fires']} fires")
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"async": traffic["eval_population_spans"] + counts["eval_population_spans"]}
+
+
+def phase_autoscale(gold) -> dict:
+    """The autoscale controller on the card (phase 4d of the module doc):
+    skewed open-loop traffic at 2 shards, organic decisions every control
+    interval, a scripted grow and shrink, and a churned golden bundle."""
+    reg, sources = build_registry(gold)
+    qos = TenantQoS(max_batch=256, max_wait_s=min(0.06, 0.25 * AUTOSCALE_DEADLINE_S),
+                    default_deadline_s=AUTOSCALE_DEADLINE_S)
+    for t in reg:
+        reg.set_qos(t, qos)
+    churn = "higgs_churn"  # the golden higgs bundle under a new name
+    sources[churn] = sources["higgs"]
+    members = {t: reg.members(t) for t in reg}
+    members[churn] = members["higgs"]
+    t_phase = time.perf_counter()
+    server = CircuitServer(reg, device=DEVICE, policy=PlacementPolicy(n_shards=2))
+    server.prewarm_plan(server.plan(), spans=PREWARM_SPANS)
+    fe = AsyncCircuitServer(server)
+    # the card count is 1: the explicit cap lets up to three shards
+    # time-share it, as the swap phase's grow does
+    ctl = AutoscaleController(fe, HysteresisPolicy(patience=1, cooldown_s=0.2, max_shards=3,
+                                                   device_cap=3, imbalance_high=1.3))
+    hot = [t for t in reg if server.shard_of(t) == 0]
+    cold = [t for t in reg if t not in hot]
+    weights = {t: AUTOSCALE_SKEW / len(hot) for t in hot}
+    weights.update({t: (1.0 - AUTOSCALE_SKEW) / (len(cold) + 1) for t in cold + [churn]})
+    rng = np.random.RandomState(SEED + 7)
+    schedule = poisson_schedule(rng, weights, AUTOSCALE_QPS, AUTOSCALE_S,
+                                AUTOSCALE_MEAN_ROWS, sources)
+    rebinds = []
+    real_rebind = fe.rebind_shards
+
+    def rebind(carry, n_shards):
+        real_rebind(carry, n_shards)
+        with fe._lock:
+            known = sorted(fe.scheduler._shard_latency)
+        rebinds.append({"carry": {str(k): v for k, v in carry.items()}, "n_shards": n_shards,
+                        "ewma_shards": known})
+
+    fe.rebind_shards = rebind
+    stop = threading.Event()
+
+    def churner():
+        t0 = time.monotonic()
+        for at, op in CHURN_AT_S:
+            if stop.wait(max(t0 + at - time.monotonic(), 0.0)):
+                return
+            if op == "add":
+                reg.add(churn, gold["higgs"][0], qos=qos)
+            else:
+                reg.remove(churn)
+
+    # the first control step comes one interval in, once fires have fed
+    # the windows and the EWMAs (an empty window reads as idle)
+    control = {"next": CONTROL_INTERVAL_S, "scripted": list(SCRIPTED_SWAPS), "organic": 0,
+               "stale": 0}
+
+    def on_time(elapsed):
+        if elapsed < control["next"]:
+            return
+        control["next"] = elapsed + CONTROL_INTERVAL_S
+        if ctl.step() is not None:
+            control["organic"] += 1
+        if control["scripted"] and elapsed >= control["scripted"][0][0]:
+            _, decision = control["scripted"].pop(0)
+            for _ in range(5):
+                try:
+                    ctl.apply(decision)
+                    break
+                except StalePlanError:  # the churn raced every retry
+                    control["stale"] += 1
+
+    thread = threading.Thread(target=churner, name="churn")
+    warms = server.aot_stats["exec_warms"]
+    circuit_eval.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            with fe:  # the exit stops the scheduler thread and drains
+                thread.start()
+                admitted, refused = replay(fe, schedule, sources, on_time)
+        finally:
+            stop.set()
+            thread.join(10.0)
+        counts = launch_counts()
+    check(not thread.is_alive(), "autoscale: the churn thread did not stop")
+    dead = server.aot_stats["exec_warms"] - warms
+    report, frep = server.stats.report(), fe.stats.report()
+    events = [{k: dataclasses.asdict(e)[k] for k in ("action", "reason", "from_shards",
+                                                     "to_shards", "swap_ms", "shards_reused",
+                                                     "shards_rebuilt", "inflight_requests")}
+              for e in ctl.events]
+    out = {"phase": "autoscale", "card": gpu_line(), "tenants": len(reg), "hot": hot,
+           "offered": len(schedule), "refused_churned": len(refused),
+           "device_cap": "explicit 3: the card count is 1, so up to 3 shards time-share it",
+           "events": events, "organic_events": control["organic"],
+           "stale_retries": control["stale"], "rebinds": rebinds,
+           "miss_rate": frep["miss_rate"], "frontend": frep,
+           "n_rebalances": report["n_rebalances"],
+           "shards_reused_frac": report["shards_reused_frac"],
+           "launches": counts, "tick_launches": report["launches"],
+           "prewarm_dead_launches": dead, "thread_warnings": thread_warnings(caught)}
+    check(not out["thread_warnings"], f"autoscale: the scheduler thread warned: "
+          f"{out['thread_warnings'][:1]}")
+    check(all(t == churn for t in refused), f"autoscale: refused {set(refused)}")
+    out["ids"] = future_mismatches(admitted, sources, members, may_fail=(churn,))
+    check(out["ids"]["served"] + out["ids"]["failed"] == len(admitted)
+          == frep["completed"] + frep["shed"],
+          f"autoscale: {out['ids']} for {len(admitted)} admitted")
+    check(out["ids"]["mismatches"] == 0 and out["ids"]["golden_mismatches"] == 0,
+          f"autoscale: ids differ from predict: {out['ids']}")
+    check(not server._results, "autoscale: a request was answered twice")
+    check(any(e.action == "rebalance" and not e.reason.startswith("scripted")
+              for e in ctl.events), f"autoscale: no organic rebalance in {events}")
+    check(len(ctl.events) >= 3, f"autoscale: {len(ctl.events)} events")
+    check(report["n_rebalances"] == len(ctl.events) and report["shards_reused_frac"] > 0,
+          f"autoscale: {report['n_rebalances']} rebalances, reused "
+          f"{report['shards_reused_frac']}")
+    check(len(rebinds) == len(ctl.events)
+          and all(set(range(r["n_shards"])) <= set(r["ewma_shards"]) for r in rebinds),
+          f"autoscale: EWMAs after the swaps {rebinds}")
+    check(counts["eval_population_spans"] == report["launches"] + dead
+          and counts["eval_population"] == 0,
+          f"autoscale: {counts}; ticks launched {report['launches']}, prewarms {dead}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"autoscale": counts["eval_population_spans"]}
+
+
 # -- phase 5 ----------------------------------------------------------------
 def higgs_split():
     """higgs (98,050 rows), split 80/20 by the port's `train_test_split`."""
@@ -1088,7 +1443,7 @@ def population_timing(genome, x, what: str, sms: int) -> dict:
         sum(a for a, _ in work), sum(r for _, r in work))
 
 
-def phase_timing(gold, checks, population_launches, serve_launches, swap_launches,
+def phase_timing(gold, checks, population_launches, serve_launches, path_launches,
                  timing_case, fit_parity_case) -> list:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # eval_population at the golden higgs predict (P = 1) and at the fit's
@@ -1132,7 +1487,7 @@ def phase_timing(gold, checks, population_launches, serve_launches, swap_launche
           f"and {staged} rows below the widths")
     live, rows = sum(a for a, _ in work), sum(r for _, r in work)
     nbytes = 4 * (3 * live + k * (n_out + 2) + rows * span + k * n_out * span)
-    spans_by_path = {"serve": serve_launches["eval_population_spans"], **swap_launches}
+    spans_by_path = {"serve": serve_launches["eval_population_spans"], **path_launches}
     entries.append(kernel_entry(
         circuit_eval.EVAL_POPULATION_SPANS, checks["eval_population_spans"],
         sum(spans_by_path.values()), timing(
@@ -1540,13 +1895,13 @@ def main() -> int:
     gold = golden()
     predict_launches = phase_predict(gold)
     serve_launches, timing_case, profile_case = phase_serve(gold)
-    swap_launches = phase_swap(gold)
+    path_launches = {**phase_swap(gold), **phase_async(gold), **phase_autoscale(gold)}
     split = higgs_split()
     fit_launches, higgs_clf = phase_fit(gold, split)
     population_launches = {"predict": predict_launches["eval_population"], **fit_launches}
     fit_parity_case = phase_fit_parity(split)
     population_launches["toolflow"], baselines = phase_toolflow(higgs_clf, split)
-    entries = phase_timing(gold, checks, population_launches, serve_launches, swap_launches,
+    entries = phase_timing(gold, checks, population_launches, serve_launches, path_launches,
                            timing_case, fit_parity_case)
     phase_sweep(gold)
     phase_profile(profile_case)

@@ -144,6 +144,43 @@ class ServableCircuit:
         )[0]
         return decode_predictions(out.cpu().numpy(), r, self.n_classes)
 
+    def serve_async(
+        self, *,
+        device: "str | torch.device | None" = None,
+        tenant: str = "default",
+        qos=None,
+        clock=None,
+    ):
+        """One-call async serving of this artifact.
+
+        Builds a single-tenant `CircuitRegistry` and a
+        `CircuitServer(device=device)` and returns an (unstarted)
+        `AsyncCircuitServer`; enter it to run the deadline scheduler::
+
+            with sc.serve_async() as frontend:
+                fut = frontend.enqueue("default", x, deadline_s=0.05)
+                ids = fut.result()
+
+        or from a coroutine::
+
+            async with sc.serve_async() as frontend:
+                ids = await frontend.submit("default", x)
+
+        ``device=None`` serves on the card and raises `NoCudaDeviceError`
+        without one; ``device="cpu"`` serves through the plain versions.
+        ``qos`` optionally pins the tenant's `TenantQoS`; ``clock``
+        injects a time source (tests).  More tenants can be added to
+        ``frontend.server.registry`` afterwards."""
+        # lazy: the serving layer imports this module
+        from repro_torch.serve.async_frontend import AsyncCircuitServer
+        from repro_torch.serve.circuits import CircuitRegistry, CircuitServer
+
+        reg = CircuitRegistry()
+        reg.add(tenant, self, qos=qos)
+        server = CircuitServer(reg, device=device)
+        kwargs = {} if clock is None else {"clock": clock}
+        return AsyncCircuitServer(server, **kwargs)
+
 
 def servable_from_arrays(
     arrays: "dict[str, np.ndarray]", meta: dict

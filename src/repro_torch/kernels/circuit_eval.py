@@ -79,6 +79,7 @@ EVAL_POPULATION_SPANS = CudaKernel(
 KERNELS = (EVAL_POPULATION, EVAL_POPULATION_SPANS)
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
 _builds = 0  # build_library calls that ran nvcc in this process
 
@@ -236,7 +237,8 @@ def _launch(kernel: CudaKernel, device, *args) -> None:
     if rc != 0:
         msg = lib.circuit_eval_error_string(rc).decode()
         raise CudaKernelError(f"{kernel.name}: launch failed ({rc}: {msg})")
-    kernel.launches += 1
+    with _count_lock:  # a front end's scheduler thread and a swap's prewarm launch together
+        kernel.launches += 1
 
 
 def _sms(device) -> int:

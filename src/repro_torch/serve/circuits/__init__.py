@@ -6,9 +6,15 @@ serving tick.  See `registry` (the catalog: hot add/remove, ensembles,
 QoS), `repro_torch.serve.planning` (PlacementPolicy → PlanCompiler →
 LaunchPlan shards), `server` (the micro-batching engine, with the
 generation-fenced `swap_plan`, shadow slots and span-launch units) and
-`metrics` (QPS / latency / occupancy / rebalance reports).
+`metrics` (QPS / latency / occupancy / rebalance reports, and the async
+front end's request-level `FrontendStats`).
 """
-from repro_torch.serve.circuits.metrics import RebalanceEvent, ServerStats, TickReport
+from repro_torch.serve.circuits.metrics import (
+    FrontendStats,
+    RebalanceEvent,
+    ServerStats,
+    TickReport,
+)
 from repro_torch.serve.circuits.registry import (
     DEFAULT_QOS,
     CircuitRegistry,
@@ -20,6 +26,7 @@ __all__ = [
     "DEFAULT_QOS",
     "CircuitRegistry",
     "CircuitServer",
+    "FrontendStats",
     "RebalanceEvent",
     "ServerStats",
     "StalePlanError",

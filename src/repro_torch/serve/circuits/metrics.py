@@ -5,6 +5,12 @@ accumulates them into the numbers an operator actually watches: QPS,
 rows/s, p50/p99 tick latency, and kernel occupancy (the fraction of
 row-lanes in the fused launch that carried real requests rather than
 word-boundary or span padding).
+
+`FrontendStats` is the request-level companion for the async front end
+(`repro_torch.serve.async_frontend`): per-request latency percentiles, the
+deadline-miss rate (shed + served-late), admission rejects, queue depth,
+and batch fill (how full the deadline scheduler's coalesced launches run
+against the tenants' `max_batch` budgets).
 """
 from __future__ import annotations
 
@@ -266,4 +272,132 @@ class ServerStats:
                 / max(sum(e.shards_reused + e.shards_rebuilt
                           for e in rebalances), 1), 4,
             ),
+        }
+
+
+@dataclasses.dataclass
+class FrontendStats:
+    """Request-level accounting for the deadline-aware async front end.
+
+    A request ends in exactly one of four states: ``rejected`` (admission
+    control: its deadline had already passed at submit), ``shed`` (expired
+    in the queue before any launch could carry it), ``served_late``
+    (completed, but after its deadline), or on-time.  The miss rate counts
+    shed + served-late over every admitted request.
+
+    Thread-safety mirrors `ServerStats`: the background scheduler thread
+    records fires and requests while callers read ``report()`` or
+    ``snapshot()`` — every mutation and every read of more than one field
+    takes the internal lock, so the deques are never iterated mid-append
+    and a reader never sees one counter moved without the other."""
+
+    backend: str = "torch-ref"
+    submitted: int = 0         # admitted into the queue
+    completed: int = 0         # futures resolved with a result or error
+    rejected: int = 0          # admission control turned the submit away
+    shed: int = 0              # expired in queue, future failed
+    served_late: int = 0       # served, but past the deadline
+    fires: int = 0             # scheduler-initiated launches
+    fire_reasons: dict = dataclasses.field(default_factory=dict)
+    shard_fires: dict = dataclasses.field(default_factory=dict)
+    request_latencies_s: collections.deque = dataclasses.field(
+        default_factory=_window
+    )
+    batch_fills: collections.deque = dataclasses.field(
+        default_factory=_window
+    )
+    queue_depth_rows: collections.deque = dataclasses.field(
+        default_factory=_window
+    )
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False
+    )
+
+    @property
+    def deadline_misses(self) -> int:
+        return self.shed + self.served_late
+
+    def record_submitted(self) -> None:
+        with self._lock:
+            self.submitted += 1
+
+    def record_poll(self, queue_rows: int) -> None:
+        with self._lock:
+            self.queue_depth_rows.append(queue_rows)
+
+    def record_shed(self, n: int) -> None:
+        with self._lock:
+            self.shed += n
+
+    def record_rejected(self) -> None:
+        with self._lock:
+            self.rejected += 1
+
+    def record_fire(
+        self,
+        reason: str,
+        fill: float,
+        shards: tuple = (),
+        reasons: "list[str] | None" = None,
+    ) -> None:
+        """One scheduler-initiated launch.  ``reasons`` carries each fired
+        shard's own trigger when shards fired together for different
+        reasons; without it the single ``reason`` is counted once."""
+        with self._lock:
+            self.fires += 1
+            for r in (reasons or [reason]):
+                self.fire_reasons[r] = self.fire_reasons.get(r, 0) + 1
+            for s in shards:
+                self.shard_fires[s] = self.shard_fires.get(s, 0) + 1
+            self.batch_fills.append(fill)
+
+    def record_request(self, latency_s: float, late: bool) -> None:
+        with self._lock:
+            self.completed += 1
+            self.request_latencies_s.append(latency_s)
+            if late:
+                self.served_late += 1
+
+    def snapshot(self) -> "tuple[int, int, list[float]]":
+        """``(submitted, deadline_misses, request latencies)`` read as one
+        consistent snapshot — what the autoscale controller windows."""
+        with self._lock:
+            return (self.submitted, self.shed + self.served_late,
+                    list(self.request_latencies_s))
+
+    def report(self) -> dict:
+        # snapshot under the lock, percentile on the copies (the scheduler
+        # thread appends concurrently)
+        with self._lock:
+            lat = list(self.request_latencies_s)
+            fill = list(self.batch_fills)
+            depth = list(self.queue_depth_rows)
+            submitted = self.submitted
+            completed = self.completed
+            rejected = self.rejected
+            shed = self.shed
+            served_late = self.served_late
+            fires = self.fires
+            fire_reasons = dict(self.fire_reasons)
+            shard_fires = dict(self.shard_fires)
+        lat = np.asarray(lat or [0.0])
+        fill = np.asarray(fill or [0.0])
+        depth = np.asarray(depth or [0])
+        admitted = max(submitted, 1)
+        return {
+            "backend": self.backend,
+            "submitted": submitted,
+            "completed": completed,
+            "rejected": rejected,
+            "shed": shed,
+            "served_late": served_late,
+            "deadline_misses": shed + served_late,
+            "miss_rate": round((shed + served_late) / admitted, 4),
+            "fires": fires,
+            "fire_reasons": fire_reasons,
+            "shard_fires": {str(k): v for k, v in shard_fires.items()},
+            "p50_latency_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
+            "p99_latency_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
+            "mean_batch_fill": round(float(fill.mean()), 4),
+            "max_queue_depth_rows": int(depth.max()),
         }

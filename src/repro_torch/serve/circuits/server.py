@@ -455,7 +455,9 @@ class CircuitServer:
             _log.info("prewarm skipped: stable_shapes=False makes launch "
                       "shapes traffic-dependent")
             return summary
-        use = sorted({int(s) for s in (self._spans_seen if spans is None else spans)})
+        # tuple(): one C-level copy, so a tick adding a bucket on another
+        # thread cannot change the set in the middle of this iteration
+        use = sorted({int(s) for s in (tuple(self._spans_seen) if spans is None else spans)})
         for shard in compiled.shards:
             self._prewarm_shard(shard, use, store, summary)
         return summary
@@ -476,7 +478,7 @@ class CircuitServer:
                       "no units exported")
             return []
         plan = self.plan()
-        use = sorted({int(s) for s in (self._spans_seen if spans is None else spans)}
+        use = sorted({int(s) for s in (tuple(self._spans_seen) if spans is None else spans)}
                      ) or [self.span_bucket(1)]
         keys = []
         for shard in plan.shards:

@@ -43,7 +43,14 @@ def test_port_has_modules():
                  "repro_torch.core.verilog", "repro_torch.core.hardware",
                  "repro_torch.core.baselines.gbdt", "repro_torch.core.baselines.mlp",
                  "repro_torch.runtime.aot", "repro_torch.serve.artifacts",
-                 "repro_torch.serve.artifacts.store"):
+                 "repro_torch.serve.artifacts.store",
+                 "repro_torch.serve.async_frontend",
+                 "repro_torch.serve.async_frontend.queue",
+                 "repro_torch.serve.async_frontend.scheduler",
+                 "repro_torch.serve.async_frontend.frontend",
+                 "repro_torch.serve.autoscale",
+                 "repro_torch.serve.autoscale.policy",
+                 "repro_torch.serve.autoscale.controller"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 
@@ -66,6 +73,28 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                        text=True, timeout=120, env=env, cwd=str(REPO))
     assert r.returncode == 0, r.stderr
     assert "imported" in r.stdout
+
+
+def test_async_and_autoscale_entry_points_import_with_jax_and_repro_blocked():
+    script = (
+        "import inspect, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{str(REPO / 'src')!r}]\n"
+        "from repro_torch.core.api import ServableCircuit\n"
+        "from repro_torch.serve.circuits import FrontendStats\n"
+        "from repro_torch.serve.async_frontend import AsyncCircuitServer, DeadlineScheduler\n"
+        "from repro_torch.serve.autoscale import AutoscaleController, HysteresisPolicy\n"
+        "params = inspect.signature(ServableCircuit.serve_async).parameters\n"
+        "assert 'device' in params and 'backend' not in params, list(params)\n"
+        "assert callable(AsyncCircuitServer.queue_rows) and callable(FrontendStats.snapshot)\n"
+        "print('entry points ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr
+    assert "entry points ok" in r.stdout
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
