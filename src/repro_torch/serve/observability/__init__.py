@@ -1,6 +1,24 @@
-"""Tracing for the port's serving tick (see `trace`)."""
-from repro_torch.serve.observability.trace import (  # noqa: F401
+"""Tracing for the port's serving stack (see `trace`) and its exporters
+(see `export`): Chrome-trace/Perfetto JSON, JSONL and a Prometheus text
+snapshot of the aggregate stats, as the reference package has them."""
+from repro_torch.serve.observability.export import (
+    export_chrome,
+    export_jsonl,
+    prometheus_text,
+    to_chrome,
+)
+from repro_torch.serve.observability.trace import (
     NULL_TRACER,
     TraceEvent,
     TraceRecorder,
 )
+
+__all__ = [
+    "NULL_TRACER",
+    "TraceEvent",
+    "TraceRecorder",
+    "export_chrome",
+    "export_jsonl",
+    "prometheus_text",
+    "to_chrome",
+]

@@ -191,6 +191,20 @@ class TraceRecorder:
                   track: "str | None" = None, **args) -> None:
         self._record("e", name, cat, track, args, id=id)
 
+    # -- export conveniences (full API in .export) ----------------------
+    def export_chrome(self, path: str) -> dict:
+        """Write the timeline as Chrome-trace/Perfetto JSON (open it at
+        https://ui.perfetto.dev or chrome://tracing)."""
+        from repro_torch.serve.observability.export import export_chrome
+
+        return export_chrome(self, path)
+
+    def export_jsonl(self, path: str) -> int:
+        """Write the timeline as one JSON object per line."""
+        from repro_torch.serve.observability.export import export_jsonl
+
+        return export_jsonl(self, path)
+
     def __repr__(self) -> str:
         state = "on" if self.enabled else "off"
         return (f"<TraceRecorder {state} {len(self._events)}"

@@ -50,7 +50,13 @@ def test_port_has_modules():
                  "repro_torch.serve.async_frontend.frontend",
                  "repro_torch.serve.autoscale",
                  "repro_torch.serve.autoscale.policy",
-                 "repro_torch.serve.autoscale.controller"):
+                 "repro_torch.serve.autoscale.controller",
+                 "repro_torch.serve.evolution",
+                 "repro_torch.serve.evolution.drift",
+                 "repro_torch.serve.evolution.refit",
+                 "repro_torch.serve.evolution.promote",
+                 "repro_torch.serve.evolution.manager",
+                 "repro_torch.serve.observability.export"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 
@@ -95,6 +101,30 @@ def test_async_and_autoscale_entry_points_import_with_jax_and_repro_blocked():
                        text=True, timeout=120, env=env, cwd=str(REPO))
     assert r.returncode == 0, r.stderr
     assert "entry points ok" in r.stdout
+
+
+def test_evolution_and_export_entry_points_import_with_jax_and_repro_blocked():
+    script = (
+        "import dataclasses, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{str(REPO / 'src')!r}]\n"
+        "from repro_torch.serve.evolution import (DriftDetector, EvolutionManager,\n"
+        "    RefitConfig, refit_circuit)\n"
+        "from repro_torch.serve.observability import TraceRecorder, prometheus_text\n"
+        "fields = {f.name for f in dataclasses.fields(RefitConfig)}\n"
+        "assert 'device' in fields and 'backend' not in fields, fields\n"
+        "assert RefitConfig().device is None\n"
+        "assert callable(TraceRecorder.export_chrome) and callable(TraceRecorder.export_jsonl)\n"
+        "assert prometheus_text() == ''\n"
+        "print('evolution ok', EvolutionManager.__name__, DriftDetector.__name__,\n"
+        "      refit_circuit.__name__)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr
+    assert "evolution ok" in r.stdout
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
