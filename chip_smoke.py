@@ -87,14 +87,13 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 64-row requests through the front end (pumped inline) with
                 label feedback; 10 stationary requests, then a shift of
                 1.5 until a promoted circuit has served 5 requests (a
-                canary rolled back on probation re-arms the loop; at most
-                30,000 requests, where the benchmark gives up after 2,000:
-                the line reports the requests to the promotion beside
-                them).  `EvolutionManager` (`observe_every=2`, a 2,048-row
-                replay window, the benchmark's `DriftConfig` and
-                `PromotionPolicy`) detects the drift, refits on its
-                background thread on the card (`RefitConfig` at
-                ``device=None``) while the ticks serve, shadows the
+                canary rolled back on probation re-arms the loop), giving
+                up after the benchmark's 2,000.  `EvolutionManager`
+                (`observe_every=2`, a 2,048-row replay window, the
+                benchmark's `DriftConfig` and `PromotionPolicy`) detects
+                the drift, refits in its worker's own process on the card
+                (`RefitConfig` at ``device=None``; the process boots
+                before the traffic) while the ticks serve, shadows the
                 candidate in the tick's spans launch and promotes it
                 through the fenced swap; the stack's `TraceRecorder` times
                 the refit and the ticks.  Then the oracle (a scratch refit
@@ -104,7 +103,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 ran on), the benchmark's interleaved overhead legs, and a
                 `torch.profiler` trace of 50 requests outside a refit and
                 50 during one.  Fails unless the drift is a divergence, at
-                least one refit and one promotion complete, no request is
+                least one refit and one promotion complete within the
+                2,000 post-shift requests, no request is
                 lost and one is served while the refit runs, accuracy on
                 post-shift rows rises, the promoted lineage names the
                 audit's parent, every request's ids equal the plain
@@ -115,14 +115,42 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 its plain replay in genome, validation fitness and
                 generations, every delivered refit was shadowed,
                 eval_population launches equal Σ(generations + 1) over the
-                parent fit, the refits and the oracle plus the shadow
-                scorer's predicts, and spans launches equal the fires plus
+                parent fit and the oracle plus the shadow scorer's
+                predicts here, and over the refits in the refit process
+                (which counts its own), and spans launches equal the fires plus
                 the swaps' prewarm.  The line has qps, the refit's
                 generations/s, the audit with `swap_ms`, the tick medians
                 while a refit runs and outside it, the profile's split of a
                 request into torch ops, CUDA synchronisation and the rest,
                 `accuracy_gap` and `evolution_overhead_pct` (reported, not
                 enforced).
+  4f. fleet   — multi-host serving on the card, `benchmarks/serve_fleet.py`'s
+                `run()` at its defaults written as a phase: 2 in-process
+                `ServingHost`s (``device="cuda"``) behind a `FleetRouter`,
+                8 tenants of the serving benchmark's shapes (genomes from
+                the port's generator), a seed-0 `skew` trace of 100,000
+                events replayed in chunks of 2,048 after a warm prefix,
+                with a `RebalanceCadence` on the trace's own clock (a
+                third of the trace; a forced move of the hottest tenant
+                when hashing already balanced, counted apart); then the
+                committed `benchmarks/workloads/fleet_smoke.jsonl.gz` at
+                chunk 500.  Each replay is held to the same trace on one
+                host (every id) and to the plain version on the host
+                (every row); it loses nothing, migrates at least once,
+                routes every event, and its spans launches equal the
+                hosts' ticks plus their prewarm launches.  Then a host in
+                its own process on the card (`spawn_host_process`) joins
+                over a `SocketTransport`, takes tenants by migration,
+                serves 4,096 events with the one-host replay's ids,
+                leaves and exits 0 on the ``shutdown`` RPC; a live fleet
+                is exported (`export_fleet`) and booted
+                (`FleetRouter.boot_from_artifact`) with no program
+                compiled and no nvcc run, its first answers the live
+                fleet's; one host's evolution RPCs (watch, submit,
+                feedback, step, report) answer as the reference's test
+                expects.  The line has each replay's requests/s, rows/s,
+                wall s, migrations and router report, the subprocess
+                host's boot s, the boot's ms and the launches.
   5. fit      — `AutoTinyClassifier(n_gates=300, λ=4, κ=300, G=2000)` over
                 the four default encodings on higgs (98,050 rows, 80/20
                 train/test split: W = 2,452 words of training rows), on
@@ -173,11 +201,13 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 share of an unprofiled step.
 
 Launch counts are set to 0 just before each main-path phase (3, 4, 4b,
-4c, 4d, 4e, 5 and 10: the fits, then each fitted classifier's predict and
-its netlist check; in 4b before each tick, swap and the boot; in 4c before
-the traffic and before the facade; in 4e before the parent's fit, read
-after the oracle) and read just after; a kernel of the path that did not
-launch fails the run.
+4c, 4d, 4e, 4f, 5 and 10: the fits, then each fitted classifier's predict
+and its netlist check; in 4b before each tick, swap and the boot; in 4c
+before the traffic and before the facade; in 4e before the parent's fit,
+read after the oracle, the refit process counting its own searches' launches;
+in 4f before each replay, the subprocess host's join, replay and leave,
+the boot and its first answers, and the evolution RPCs' submit) and read
+just after; a kernel of the path that did not launch fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -242,6 +272,9 @@ from repro_torch.serve.evolution import (  # noqa: E402
     DriftConfig, EvolutionManager, PromotionPolicy, RefitConfig, RefitWorker, ReplayBuffer,
     bit_activation_stats, refit_circuit)
 from repro_torch.serve.evolution.refit import _refit_key  # noqa: E402
+from repro_torch.serve.fleet import (  # noqa: E402
+    FleetRouter, InProcTransport, RebalanceCadence, ServingHost, SocketTransport, dump_bundle,
+    generate, load_trace, spawn_host_process)
 from repro_torch.serve.observability import TraceRecorder  # noqa: E402
 from repro_torch.serve.planning import (  # noqa: E402
     PlacementPolicy, PlanCompiler, circuit_digest, ensemble_vote)
@@ -315,18 +348,27 @@ CHURN_AT_S = ((0.5, "add"), (1.3, "remove"), (2.1, "add"), (2.9, "remove"))
 # the parent fitted at n = 100 with one 4-bit quantile encoding on 3,000
 # pre-shift rows, G = 1,200 and κ = G / 4 for the fit, the refit and the
 # oracle; 64-row requests; 10 stationary requests, then a shift of 1.5 until
-# 5 requests after the promotion; a 2,048-row replay window.  Two departures:
-# a canary rolled back within those 5 requests re-arms the loop (the
-# benchmark would stop with the parent live), and where the benchmark gives
-# up after EVOLVE_WINDOW post-shift requests, the phase serves on to
-# EVOLVE_EVENTS: the port's inline loop answers the window's requests before
-# its background search ends (a fault of the port, reported in the line as
-# requests_to_promotion beside the window)
+# 5 requests after the promotion, giving up after EVOLVE_WINDOW post-shift
+# requests; a 2,048-row replay window.  One departure: a canary rolled back
+# within those 5 requests re-arms the loop inside the window (the benchmark
+# would stop with the parent live)
 EVOLVE_TENANT, EVOLVE_FEATS, EVOLVE_GATES = "t0", 6, 100
 EVOLVE_ROWS, EVOLVE_GENS, EVOLVE_SHIFT = 64, 1200, 1.5
-EVOLVE_WINDOW, EVOLVE_EVENTS, EVOLVE_STATIONARY, EVOLVE_TAIL = 2000, 30_000, 10, 5
+EVOLVE_WINDOW, EVOLVE_STATIONARY, EVOLVE_TAIL = 2000, 10, 5
 EVOLVE_REPLAY, EVOLVE_OBSERVE_EVERY = 2048, 2
 EVOLVE_TRACE_EVENTS = 1 << 20   # the stack's timeline: about 25 events a request
+# fleet: benchmarks/serve_fleet.py's run() at its defaults — 2 in-process
+# hosts behind a FleetRouter, 8 tenants of the serving benchmark's shapes
+# (benchmarks/serve_circuits.py's make_fleet: a 256-row quantile encoder
+# each, the full function set; genomes from the port's generator), a seed-0
+# skew trace of 100,000 events replayed in chunks of 2,048 with a
+# RebalanceCadence on the trace's clock (a third of the trace), the same
+# trace on one host as the oracle; then the CI leg's committed trace at
+# chunk 500, a subprocess host, an exported and booted fleet and one host's
+# evolution RPCs
+FLEET_HOSTS, FLEET_TENANTS, FLEET_EVENTS, FLEET_CHUNK = 2, 8, 100_000, 2048
+FLEET_TRACE = os.path.join(ROOT, "benchmarks", "workloads", "fleet_smoke.jsonl.gz")
+FLEET_TRACE_CHUNK, FLEET_PROC_EVENTS = 500, 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -1474,7 +1516,7 @@ def evolve_contention(parent, refit_cfg, requests: int = 50) -> dict:
             for i in range(20 + 2 * requests)]
     for x in rows[:20]:
         check(evolve_serve(fe, x) is not None, "evolve: a contention request failed")
-    worker = RefitWorker(refit_cfg)
+    worker = RefitWorker(refit_cfg).start()   # the child's boot, before any window
     buf = ReplayBuffer(EVOLVE_REPLAY)
     buf.extend(*evolve_rows(EVOLVE_REPLAY, shift=EVOLVE_SHIFT, seed=SEED + 600))
     out, done = {}, []
@@ -1530,6 +1572,10 @@ def phase_evolve() -> dict:
             policy=PromotionPolicy(min_shadow_rows=512, min_labeled_rows=256,
                                    min_accuracy_delta=0.0),
             replay_capacity=EVOLVE_REPLAY, observe_every=EVOLVE_OBSERVE_EVERY)
+        # the refit's own process boots here, before any traffic
+        t_boot = time.perf_counter()
+        mgr.worker.start()
+        refit_boot_s = time.perf_counter() - t_boot
         mgr.watch(EVOLVE_TENANT)
         warms = server.aot_stats["exec_warms"]
         # per request: rows, labels, served ids, the circuit its tick served
@@ -1554,7 +1600,7 @@ def phase_evolve() -> dict:
             mgr.step()
         check(not mgr.detector(EVOLVE_TENANT).drifted, "evolve: a false trigger pre-shift")
         tail = 0
-        for i in range(EVOLVE_EVENTS):
+        for i in range(EVOLVE_WINDOW):
             lost += serve(*evolve_rows(EVOLVE_ROWS, shift=EVOLVE_SHIFT,
                                        seed=SEED * 13 + 100 + i))
             during_refit += mgr.worker.busy(EVOLVE_TENANT)
@@ -1572,7 +1618,10 @@ def phase_evolve() -> dict:
                 break
         wall = time.perf_counter() - t0
         busy_at_end = mgr.worker.busy(EVOLVE_TENANT)
+        child_pid = mgr.worker._child.pid
         mgr.stop()
+        # the refit searches' launches, made in the worker's process
+        remote = dict(mgr.worker.remote_launches)
         # the oracle: a scratch search at the same budget on a same-size
         # window of post-shift rows
         ox, oy = evolve_rows(EVOLVE_REPLAY, shift=EVOLVE_SHIFT, seed=SEED + 500)
@@ -1666,7 +1715,7 @@ def phase_evolve() -> dict:
     out = {"phase": "evolve", "card": gpu_line(), "n_requests": n,
            "requests_to_promotion": promoted_at, "benchmark_window": EVOLVE_WINDOW,
            "promoted_within_benchmark_window": promoted_at is not None
-           and promoted_at <= EVOLVE_WINDOW, "events_cap": EVOLVE_EVENTS,
+           and promoted_at <= EVOLVE_WINDOW,
            "batch_rows": EVOLVE_ROWS, "search_gens": EVOLVE_GENS, "shift": EVOLVE_SHIFT,
            "qps": n / wall, "rows_per_s": n * EVOLVE_ROWS / wall, "wall_s": wall,
            "drift_reason": drift_reasons[0] if drift_reasons else "",
@@ -1690,7 +1739,10 @@ def phase_evolve() -> dict:
            "trace_events": len(tracer), "trace_dropped": tracer.dropped,
            "contention_profile": contention,
            "evolution_report": report, "frontend": frep,
-           "launches": counts, "evaluations": evals, "fires": frep["fires"],
+           "launches": counts, "refit_process": {
+               "boot_s": refit_boot_s, "pid": child_pid, "parent_pid": os.getpid(),
+               "launches": remote},
+           "evaluations": evals, "fires": frep["fires"],
            "tick_launches": srep["launches"], "prewarm_dead_launches": dead,
            "thread_warnings": thread_warnings(caught), **overhead}
     out["phase_s"] = time.perf_counter() - t_phase
@@ -1700,6 +1752,8 @@ def phase_evolve() -> dict:
     check(out["drift_reason"] == "divergence", f"evolve: drift {drift_reasons}")
     check(out["refits"] >= 1 and out["promotions"] >= 1,
           f"evolve: {out['refits']} refits, {out['promotions']} promotions")
+    check(out["promoted_within_benchmark_window"],
+          f"evolve: no promotion within the benchmark's {EVOLVE_WINDOW} post-shift requests")
     check(lost == 0, f"evolve: {lost} requests lost")
     check(during_refit >= 1, "evolve: no request was served while the refit ran")
     check(acc_after > acc_before, f"evolve: accuracy {acc_before} -> {acc_after}")
@@ -1717,12 +1771,290 @@ def phase_evolve() -> dict:
     check(report["refits_completed"] == len(cands) and mgr.worker.discarded == 0
           and report["pending_candidates"] == 0 and not busy_at_end,
           f"evolve: {report['refits_completed']} refits delivered, {len(cands)} shadowed")
-    check(counts["eval_population"] == sum(evals.values()),
-          f"evolve: {counts['eval_population']} eval_population launches for {evals}")
+    check(remote.get("eval_population", 0) == evals["refits"]
+          and counts["eval_population"] == sum(evals.values()) - evals["refits"],
+          f"evolve: {counts['eval_population']} eval_population launches here and "
+          f"{remote} in the refit process for {evals}")
     check(counts["eval_population_spans"] == srep["launches"] + dead
           and srep["launches"] == frep["fires"] == during["ticks"] + outside["ticks"],
           f"evolve: {counts} for {frep['fires']} fires and {dead} prewarm launches")
-    return {"evolve": counts["eval_population_spans"]}, counts["eval_population"]
+    return ({"evolve": counts["eval_population_spans"]},
+            counts["eval_population"] + remote.get("eval_population", 0))
+
+
+# -- phase 4f ---------------------------------------------------------------
+def fleet_circuits() -> dict:
+    """The benchmark's tenants: `SERVE_SHAPES` cycled, one 256-row quantile
+    encoder each, the full function set, genomes from the port's generator."""
+    g = torch.Generator().manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for i in range(FLEET_TENANTS):
+        f, b, n, c = SERVE_SHAPES[i % len(SERVE_SHAPES)]
+        enc = E.fit_encoder(rng.randn(256, f).astype(np.float32),
+                            E.EncodingConfig("quantile", b))
+        spec = CircuitSpec(enc.n_bits_total, n, max(1, int(np.ceil(np.log2(c)))), FULL_FS)
+        out[f"tenant{i}"] = ServableCircuit(spec, init_genome(g, spec), enc, c)
+    return out
+
+
+def fleet_router(n_hosts: int, circuits: dict) -> FleetRouter:
+    """``n_hosts`` started in-process hosts on the card behind a router, the
+    tenants registered (each shipped to its owner as a bundle)."""
+    router = FleetRouter()
+    for i in range(n_hosts):
+        host = ServingHost(f"host{i}", CircuitRegistry(), device=DEVICE)
+        host.start()
+        router.add_host(f"host{i}", InProcTransport(host))
+    for t, sc in sorted(circuits.items()):
+        router.register(t, [sc])
+    return router
+
+
+def local_hosts(router) -> list:
+    return [tr.host for tr in router._transports.values() if isinstance(tr, InProcTransport)]
+
+
+def plain_mismatches(events, results, circuits) -> int:
+    """Rows whose served ids differ from the plain version on the host
+    (each tenant's events' rows predicted in one call)."""
+    bad = 0
+    for t, sc in circuits.items():
+        idx = [i for i, e in enumerate(events) if e.tenant == t]
+        if not idx:
+            continue
+        x = np.concatenate([events[i].features(sc.encoder.n_features) for i in idx])
+        got = np.concatenate([results[i] for i in idx])
+        bad += int((got != sc.predict(x, device="cpu")).sum())
+    return bad
+
+
+def id_mismatches(results, want) -> int:
+    return sum(1 for a, b in zip(results, want) if not (
+        isinstance(a, np.ndarray) and isinstance(b, np.ndarray) and a.dtype == b.dtype
+        and np.array_equal(a, b))) + abs(len(results) - len(want))
+
+
+def fleet_replay(workload, chunk: int, circuits: dict, counts: PathCounts) -> tuple:
+    """The benchmark's `run()`: warm on a prefix, zero the stats, replay the
+    trace with the cadence on its clock (a scripted move of the hottest
+    tenant when hashing already balanced, counted as forced).  Returns (the
+    line, the results)."""
+    router = fleet_router(FLEET_HOSTS, circuits)
+    hosts = local_hosts(router)
+    try:
+        warm = min(4 * len(circuits) * 8, max(workload.n_events // 10, 1))
+        router.replay(workload.events[:warm], chunk_size=warm)
+        router.reset_stats()
+        now = [0.0]
+        cadence = RebalanceCadence(router, interval_s=max(workload.events[-1].t / 3.0, 1e-9),
+                                   min_rows=chunk, clock=lambda: now[0])
+        forced = 0
+
+        def on_chunk(ci: int, r) -> None:
+            nonlocal forced
+            now[0] = workload.events[min((ci + 1) * chunk, workload.n_events) - 1].t
+            moved = cadence.tick()
+            if moved is not None and not moved and not r.migrations:
+                loads = r.observed_loads()
+                hot = max(sorted(loads), key=lambda t: loads[t])
+                r.migrate(hot, min(h for h in r.hosts if h != r.owner_of(hot)),
+                          reason="bench-forced")
+                forced += 1
+
+        warms = [h.server.aot_stats["exec_warms"] for h in hosts]
+        before = dict(counts.total)
+        t0 = time.perf_counter()
+        results = counts(router.replay, workload.events, chunk_size=chunk, on_chunk=on_chunk)
+        wall = time.perf_counter() - t0
+        launched = {k: counts.total[k] - v for k, v in before.items()}
+        ticks = sum(h.server.stats.report()["launches"] for h in hosts)
+        dead = sum(h.server.aot_stats["exec_warms"] - w for h, w in zip(hosts, warms))
+        report = router.report()
+        moves = [{"tenant": m.tenant, "from": m.from_host, "to": m.to_host,
+                  "reason": m.reason, "drained": m.drained, "buffered": m.buffered,
+                  "duration_ms": m.duration_s * 1e3} for m in router.migrations]
+        fires = cadence.fires
+    finally:
+        router.close()
+    lost = sum(not isinstance(y, np.ndarray) for y in results)
+    line = {"n_events": workload.n_events, "total_rows": workload.total_rows,
+            "shape": workload.meta.get("shape"), "chunk_size": chunk,
+            "qps": workload.n_events / wall, "rows_per_s": workload.total_rows / wall,
+            "wall_s": wall, "migrations": len(moves), "cadence_fires": fires,
+            "forced_migrations": forced, "migration_events": moves, "lost_requests": lost,
+            "launches": launched, "tick_launches": ticks, "prewarm_dead_launches": dead,
+            "router": report["router"], "hosts": report["hosts"]}
+    return line, results
+
+
+def fleet_subprocess(circuits: dict, events, want, counts: PathCounts) -> dict:
+    """A host in its own process on the card: spawned empty, joined over a
+    `SocketTransport` (the ring migrates tenants into it, else one is
+    moved), served, left (its tenants migrate back) and shut down by the
+    ``shutdown`` RPC.  Its ids must equal the in-process oracle's."""
+    router = fleet_router(1, circuits)
+    t0 = time.perf_counter()
+    proc, addr = spawn_host_process("proc0")
+    boot_s = time.perf_counter() - t0
+    try:
+        transport = SocketTransport(addr, connect_timeout_s=30.0)
+        counts(router.add_host, "proc0", transport)
+        joined = [m.tenant for m in router.migrations]
+        if not joined:
+            counts(router.migrate, sorted(circuits)[0], "proc0", reason="smoke")
+        remote = router.plan.tenants_of("proc0")
+        got = counts(router.replay, events, chunk_size=FLEET_CHUNK)
+        stats = transport.call("stats")
+        ping = transport.call("ping")
+        served_remote = sum(e.tenant in remote for e in events)
+        counts(router.remove_host, "proc0")
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        router.close()
+    return {"boot_s": boot_s, "joined_by_ring": joined, "tenants": list(remote),
+            "events": len(events), "events_on_process_host": served_remote,
+            "mismatches": id_mismatches(got, want), "backend": ping["backend"],
+            "tick_launches": stats["server"]["launches"],
+            "migrations_in": stats["migrations_in"], "exit_code": code}
+
+
+def fleet_boot(circuits: dict, events, counts: PathCounts) -> dict:
+    """`export_fleet` of a live 2-host fleet that has served, then
+    `FleetRouter.boot_from_artifact`: no program compiled, no nvcc, and the
+    booted fleet's first answers equal the live fleet's."""
+    router = fleet_router(FLEET_HOSTS, circuits)
+    build = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(build, exist_ok=True)
+    path = tempfile.mkdtemp(prefix="fleet_store_", dir=build)
+    try:
+        router.replay(events, chunk_size=len(events))
+        t0 = time.perf_counter()
+        summary = router.export_fleet(path)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        live = router.replay(events, chunk_size=len(events))
+        programs, builds = aot.compile_count(), aot.build_count()
+        t0 = time.perf_counter()
+        booted = counts(FleetRouter.boot_from_artifact, path, device=DEVICE)
+        boot_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            t0 = time.perf_counter()
+            first = counts(booted.replay, events, chunk_size=len(events))
+            first_ms = (time.perf_counter() - t0) * 1e3
+            same_plan = booted.plan.content_hash == router.plan.content_hash
+            preload = [h.server.aot_stats for h in local_hosts(booted)]
+        finally:
+            booted.close()
+        compiled, built = aot.compile_count() - programs, aot.build_count() - builds
+    finally:
+        router.close()
+        shutil.rmtree(path, ignore_errors=True)
+    return {"export": summary, "export_ms": export_ms, "boot_ms": boot_ms,
+            "first_answers_ms": first_ms, "events": len(events), "compile_count": compiled,
+            "build_count": built, "mismatches": id_mismatches(first, live),
+            "same_plan": same_plan, "aot_stats": preload}
+
+
+def fleet_evolution_rpcs(counts: PathCounts) -> dict:
+    """One host's evolution RPC round trip on the card, as the reference's
+    `test_host_evolution_rpcs_end_to_end` drives it: watch, submit,
+    feedback, step, report."""
+    rng = np.random.RandomState(SEED + 23)
+    x = rng.randn(200, 4).astype(np.float32)
+    sc = make_tenant(torch.Generator().manual_seed(SEED + 23), rng, 4, 2, 30, 2, x_fit=x)
+    sc = dataclasses.replace(sc, ref_stats=bit_activation_stats(sc.encoder, x))
+    host = ServingHost("evo0", CircuitRegistry(), device=DEVICE)
+    tr = InProcTransport(host)
+    tr.call("add_tenant", {"tenant": "t", "bundles": [dump_bundle(sc)]})
+    host.start()
+    try:
+        watch = tr.call("evolution_watch", {"tenant": "t", "synchronous_refit": True,
+                                            "accuracy_baseline": 0.9})
+        rows = rng.randn(32, 4).astype(np.float32)
+        served = counts(tr.call, "submit", {"tenant": "t", "x": rows, "deadline_s": 5.0})
+        fb = tr.call("feedback", {"tenant": "t", "request_id": served["request_id"],
+                                  "labels": np.asarray(served["y"])})
+        step = tr.call("evolution_step", {})
+        report = tr.call("evolution_report", {})
+    finally:
+        host.stop()
+    return {"watched": watch["watched"], "accepted": fb["accepted"],
+            "step_enabled": step["enabled"], "report_watched": report["watched"],
+            "feedback_rows": report["feedback_rows"],
+            "refit_device": str(host.evolution.refit_cfg.device),
+            "mismatches": int((np.asarray(served["y"]) != sc.predict(rows, device="cpu")).sum())}
+
+
+def phase_fleet() -> dict:
+    """The multi-host fleet on the card (phase 4f of the module doc).
+    Returns the path's spans launches."""
+    t_phase = time.perf_counter()
+    circuits = fleet_circuits()
+    counts = PathCounts()
+    out = {"phase": "fleet", "card": gpu_line(), "hosts": FLEET_HOSTS,
+           "tenants": FLEET_TENANTS}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        legs = {}
+        for name, workload, chunk in (
+                ("skew_100k", generate("skew", n_events=FLEET_EVENTS,
+                                       tenants=sorted(circuits), seed=SEED), FLEET_CHUNK),
+                ("committed_trace", load_trace(FLEET_TRACE), FLEET_TRACE_CHUNK)):
+            t0 = time.perf_counter()
+            line, results = fleet_replay(workload, chunk, circuits, counts)
+            solo = fleet_router(1, circuits)
+            try:
+                oracle = solo.replay(workload.events, chunk_size=chunk)
+            finally:
+                solo.close()
+            line["oracle_mismatches"] = id_mismatches(results, oracle)
+            line["plain_mismatches"] = plain_mismatches(workload.events, results, circuits)
+            line["leg_s"] = time.perf_counter() - t0
+            legs[name] = line
+            if name == "skew_100k":
+                proc_events = workload.events[:FLEET_PROC_EVENTS]
+                proc_want = oracle[:FLEET_PROC_EVENTS]
+            del results, oracle
+        t0 = time.perf_counter()
+        out["subprocess_host"] = fleet_subprocess(circuits, proc_events, proc_want, counts)
+        out["subprocess_host"]["leg_s"] = time.perf_counter() - t0
+        out["boot"] = fleet_boot(circuits, proc_events[:FLEET_CHUNK], counts)
+        out["evolution_rpcs"] = fleet_evolution_rpcs(counts)
+    out["replays"] = legs
+    out["launches"] = counts.total
+    out["thread_warnings"] = thread_warnings(caught)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    check(not out["thread_warnings"], f"fleet: a thread warned: {out['thread_warnings'][:1]}")
+    for name, line in legs.items():
+        check(line["lost_requests"] == 0, f"fleet {name}: {line['lost_requests']} requests lost")
+        check(line["migrations"] >= 1, f"fleet {name}: no migration")
+        check(line["router"]["requests_routed"] == line["n_events"],
+              f"fleet {name}: routed {line['router']['requests_routed']} of {line['n_events']}")
+        check(line["oracle_mismatches"] == 0 and line["plain_mismatches"] == 0,
+              f"fleet {name}: {line['oracle_mismatches']} ids differ from the single host's "
+              f"and {line['plain_mismatches']} rows from the plain version")
+        check(line["launches"]["eval_population_spans"]
+              == line["tick_launches"] + line["prewarm_dead_launches"],
+              f"fleet {name}: {line['launches']} for {line['tick_launches']} ticks and "
+              f"{line['prewarm_dead_launches']} prewarm launches")
+    proc = out["subprocess_host"]
+    check(proc["mismatches"] == 0 and proc["exit_code"] == 0
+          and proc["backend"] == runtime.backend_for(torch.device(DEVICE)).name
+          and proc["events_on_process_host"] > 0 and proc["tick_launches"] > 0,
+          f"fleet: the subprocess host {proc}")
+    boot = out["boot"]
+    check(boot["compile_count"] == 0 and boot["build_count"] == 0 and boot["mismatches"] == 0
+          and boot["same_plan"] and boot["export"]["executables"] > 0,
+          f"fleet: the booted fleet {boot}")
+    evo = out["evolution_rpcs"]
+    check(evo["watched"] == ["t"] and evo["accepted"] == 32 and evo["feedback_rows"] == 32
+          and evo["report_watched"] == 1 and evo["mismatches"] == 0,
+          f"fleet: the evolution RPCs {evo}")
+    return {"fleet": counts.total["eval_population_spans"]}
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -2436,6 +2768,7 @@ def main() -> int:
     path_launches = {**phase_swap(gold), **phase_async(gold), **phase_autoscale(gold)}
     evolve_spans, evolve_population = phase_evolve()
     path_launches.update(evolve_spans)
+    path_launches.update(phase_fleet())
     split = higgs_split()
     fit_launches, higgs_clf = phase_fit(gold, split)
     population_launches = {"predict": predict_launches["eval_population"], **fit_launches,

@@ -4,7 +4,8 @@
 bundles, stored span-launch units (`repro_torch.runtime.aot`), and one
 JSON manifest naming them (tenants, QoS, executable provenance, an
 optional whole-fleet section).  Its layout is the reference's, so either
-package reads a store the other wrote.
+package reads a store the other wrote.  `load_legacy_registry_dir`
+reads the flat per-tenant bundle directories written before the store.
 """
 from repro_torch.serve.artifacts.store import (  # noqa: F401
     CIRCUIT_SUFFIX,
@@ -13,6 +14,7 @@ from repro_torch.serve.artifacts.store import (  # noqa: F401
     STORE_FORMAT_VERSION,
     STORE_KIND,
     ArtifactStore,
+    load_legacy_registry_dir,
 )
 
 __all__ = [
@@ -22,4 +24,5 @@ __all__ = [
     "MANIFEST_NAME",
     "STORE_FORMAT_VERSION",
     "STORE_KIND",
+    "load_legacy_registry_dir",
 ]

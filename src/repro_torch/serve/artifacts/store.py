@@ -333,3 +333,64 @@ class ArtifactStore:
                 os.remove(os.path.join(obj_dir, fname))
                 removed.append(rel)
         return removed
+
+
+# --------------------------------------------------------------------------
+# legacy flat-directory reader (pre-store save_dir layout)
+# --------------------------------------------------------------------------
+
+
+def load_legacy_registry_dir(path: str):
+    """Rebuild a registry from a flat directory of per-tenant bundles —
+    the layout `CircuitRegistry.save_dir` wrote before the store existed
+    (``<tenant>.circuit.npz`` / ``<tenant>@m<idx>.circuit.npz``).
+
+    '@m<digits>' is only an ensemble member marker when the files form a
+    well-formed ensemble (members 0..k-1, k >= 2, no zero-padding — the
+    only shape save_dir ever wrote); any other stem is a plain tenant
+    name verbatim, so directories written before the suffix was reserved
+    (tenants like 'model@v2' or 'exp@2') restore under their original
+    names.  Bundles written by either package load (the port's own copy of
+    the reference's reader)."""
+    from repro_torch.serve.circuits.registry import CircuitRegistry
+
+    reg = CircuitRegistry()
+    candidates: dict[str, list[tuple[int, str, str]]] = {}
+    grouped: dict[str, list[tuple[str, str]]] = {}  # (stem, path)
+    for fname in sorted(os.listdir(path)):
+        if not fname.endswith(CIRCUIT_SUFFIX):
+            continue
+        stem = fname[: -len(CIRCUIT_SUFFIX)]
+        full = os.path.join(path, fname)
+        m = _MEMBER_SUFFIX.match(stem)
+        if m:
+            candidates.setdefault(m.group(1), []).append(
+                (int(m.group(2)), stem, full)
+            )
+        else:
+            grouped[stem] = [(stem, full)]
+    for tenant, found in candidates.items():
+        found.sort()
+        if (tenant not in grouped  # a plain '<tenant>' bundle wins
+                and len(found) >= 2
+                and [i for i, _, _ in found] == list(range(len(found)))
+                and all(s == f"{tenant}{ENSEMBLE_SEP}{i}"
+                        for i, s, _ in found)):  # no zero-padding
+            grouped[tenant] = [(s, p) for _, s, p in found]
+        else:  # legacy plain names that merely look like members —
+            # restore under their original stems, verbatim
+            for _, stem, p in found:
+                grouped[stem] = [(stem, p)]
+    for tenant, entries in grouped.items():
+        circuits = [load_servable(p) for _, p in entries]
+        try:
+            reg.add_ensemble(tenant, circuits)
+        except ValueError:
+            if len(entries) == 1:
+                raise
+            # a member-shaped group that is not actually a coherent
+            # ensemble (mismatched widths/classes) can only be legacy
+            # plain tenants — restore them individually, verbatim
+            for (stem, _), sc in zip(entries, circuits):
+                reg.add(stem, sc)
+    return reg

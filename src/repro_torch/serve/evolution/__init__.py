@@ -13,8 +13,9 @@ serving thread:
     accuracy EWMA fed by `AsyncCircuitServer.submit_feedback`;
   * `refit` — `RefitWorker`: on a drift trip, re-evolves the tenant's
     circuit on a `ReplayBuffer` of recent labeled traffic, seeded from
-    the live genome (`evolve_packed(seed_genome=...)`), on a background
-    thread, rate-limited and cancellable;
+    the live genome (`evolve_packed(seed_genome=...)`), in a child
+    process of its own driven from a background thread, rate-limited and
+    cancellable;
   * `promote` — the candidate rides the fused launch as a hidden shadow
     slot (`CircuitServer.set_shadow`), scored on live traffic by the
     `ShadowScorer`; a `PromotionPolicy` drives promotion through the

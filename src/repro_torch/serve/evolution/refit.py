@@ -4,7 +4,7 @@ When a tenant's `DriftDetector` trips, the loop does not retrain in the
 serving thread — it hands a `RefitJob` to the `RefitWorker`, which
 re-runs the paper's 1+λ search on a recent window of labeled traffic
 (the tenant's `ReplayBuffer`), **seeded from the live genome**
-(`evolve_packed(..., seed_genome=...)`), on its own thread.  The live
+(`evolve_packed(..., seed_genome=...)`), in its own process.  The live
 circuit keeps serving untouched; the result comes back through a
 callback and enters the shadow/canary pipeline (`promote`).
 
@@ -33,7 +33,15 @@ reproduce the reference's threefry stream, so a candidate equals the
 reference's only when the reference's draws are replayed into it.
 `RefitWorker` increments ``completed`` and ``discarded`` under its lock;
 the reference increments them on the worker thread without it, as it does
-the manager's counters (see `manager`).
+the manager's counters (see `manager`).  A background `RefitWorker` runs
+each search in a child interpreter of its own (`refit_process`), where the
+reference runs it on the worker thread: the reference's search is one
+jitted call that holds no interpreter lock, the port's is a Python loop of
+torch calls that would share one with the serving loop.  `start()` returns
+once the child is ready, and raises if it cannot start; a job whose child
+dies fails with a warning, and nothing runs the search on the thread
+instead.  The child's kernel launches are tallied in
+``RefitWorker.remote_launches`` (launch counts are per process).
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from repro_torch.core.evolve import EvolveConfig, evolve_packed
 from repro_torch.core.genome import Genome
 from repro_torch.device import resolve_device
 from repro_torch.serve.evolution.drift import bit_activation_stats
+from repro_torch.serve.evolution.refit_process import RefitProcess, RefitProcessError
 from repro_torch.serve.observability.trace import NULL_TRACER, TraceRecorder
 
 
@@ -160,7 +169,7 @@ def refit_circuit(
 ) -> RefitResult:
     """One synchronous refit: re-evolve ``live`` on the labeled window.
 
-    The pure core the worker thread runs — also the hook for tests and
+    The pure core the worker's process runs — also the hook for tests and
     benchmarks that want determinism without threads.  The search runs
     on ``cfg.device``; the candidate's genome comes back to the host."""
     from repro_torch.serve.planning import circuit_digest  # cycle-free at call
@@ -233,7 +242,11 @@ class RefitWorker:
     is discarded.  With ``synchronous=True`` the job runs inline in
     `request` — the deterministic mode tests and fake-clock benchmarks
     drive.  The configuration's device is resolved here, so a worker
-    asked for the card on a host without one raises at construction."""
+    asked for the card on a host without one raises at construction.
+
+    A background worker's searches run in its child process (`start`
+    spawns it and waits for it to be ready); the worker thread sends each
+    job there and blocks on the reply."""
 
     def __init__(
         self,
@@ -255,6 +268,9 @@ class RefitWorker:
         self._counts: dict[str, int] = {}
         self.completed = 0
         self.discarded = 0
+        # kernel launches the child's searches made, by kernel name
+        self.remote_launches: dict[str, int] = {}
+        self._child: "RefitProcess | None" = None
         self._thread: "threading.Thread | None" = None
         self._stop = threading.Event()
 
@@ -289,9 +305,14 @@ class RefitWorker:
         )
         if self.synchronous:
             self._run_job(job)
-        else:
+            return True
+        try:
             self.start()
-            self._queue.put(job)
+        except BaseException:
+            with self._lock:
+                del self._inflight[tenant]
+            raise
+        self._queue.put(job)
         return True
 
     def cancel(self, tenant: str) -> bool:
@@ -319,10 +340,13 @@ class RefitWorker:
                 "evolution.refit", cat="evolution", track="evolution",
                 tenant=job.tenant, rows=int(x.shape[0]),
             ):
-                result = refit_circuit(
-                    job.tenant, job.live, x, y, self.cfg,
-                    refit_index=job.refit_index,
-                )
+                if self.synchronous:
+                    result = refit_circuit(
+                        job.tenant, job.live, x, y, self.cfg,
+                        refit_index=job.refit_index,
+                    )
+                else:
+                    result = self._remote_refit(job, x, y)
             if job.cancelled.is_set():
                 with self._lock:
                     self.discarded += 1
@@ -334,6 +358,22 @@ class RefitWorker:
             with self._lock:
                 if self._inflight.get(job.tenant) is job:
                     del self._inflight[job.tenant]
+
+    def _remote_refit(self, job: _Job, x, y) -> RefitResult:
+        """The job's search in the child process (the wait releases the
+        interpreter lock); its launches join ``remote_launches``."""
+        with self._lock:
+            child = self._child
+        if child is None or not child.alive():
+            code = None if child is None else child.proc.poll()
+            raise RefitProcessError(
+                f"the refit process is not running (exit code {code})")
+        result, launches = child.refit(job.tenant, job.live, x, y, self.cfg,
+                                       job.refit_index)
+        with self._lock:
+            for name, n in launches.items():
+                self.remote_launches[name] = self.remote_launches.get(name, 0) + n
+        return result
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -355,6 +395,17 @@ class RefitWorker:
 
     # -- lifecycle -----------------------------------------------------
     def start(self) -> "RefitWorker":
+        """Start the child process (unless one is running: a dead child is
+        replaced) and the worker thread.  Returns once the child is
+        ready; raises `RefitProcessError` when it cannot start."""
+        with self._lock:
+            child = self._child
+        if child is None or not child.alive():
+            if child is not None:
+                child.close(timeout=1.0)
+            child = RefitProcess(self.cfg.device)
+            with self._lock:
+                self._child = child
         if self._thread is None or not self._thread.is_alive():
             self._stop.clear()
             self._thread = threading.Thread(
@@ -369,6 +420,10 @@ class RefitWorker:
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
+        with self._lock:
+            child, self._child = self._child, None
+        if child is not None:
+            child.close(timeout)
 
     def join(self, timeout: float = 60.0) -> bool:
         """Block until no job is in flight (tests/benchmarks)."""

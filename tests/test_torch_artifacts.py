@@ -395,3 +395,63 @@ def test_unit_entry_points_default_to_the_card(monkeypatch):
         aot.deserialize_executable(payload)
     with pytest.raises(runtime.NoCudaDeviceError):
         CircuitServer(CircuitRegistry())
+
+
+# ---------------------------------------------------------------------------
+# legacy flat directories
+# ---------------------------------------------------------------------------
+
+def _legacy_layout(case, tmp_path):
+    """A directory as the reference left it: flat ``<tenant>.circuit.npz``
+    bundles (what `CircuitRegistry.save_dir` wrote before the store, one
+    reference bundle per member), or today's `save_dir`."""
+    from repro.core.api import save_servable as ref_save
+    from repro.serve.circuits import CircuitRegistry as RefRegistry
+    from tests.test_planning import make_servable
+
+    sc = make_servable(33, 4, 2, 30, 2)
+    names = {
+        "at_sign_names": ["model@v2", "exp@2", "pad@m00", "ens@m0", "ens@m1",
+                          "a", "a@m0", "a@m1"],
+        "ensemble": ["e@m0", "e@m1", "e@m2", "plain"],
+    }
+    if case == "incoherent_group":   # different widths and classes: plain tenants
+        ref_save(make_servable(41, 4, 2, 30, 2), str(tmp_path / "y@m0.circuit.npz"))
+        ref_save(make_servable(42, 7, 2, 30, 3), str(tmp_path / "y@m1.circuit.npz"))
+    elif case == "save_dir":
+        reg = RefRegistry()
+        reg.add("t0", sc)
+        reg.add_ensemble("ens", [sc, make_servable(34, 4, 2, 40, 2)])
+        with pytest.warns(DeprecationWarning):
+            reg.save_dir(str(tmp_path))
+    else:
+        for name in names[case]:
+            ref_save(sc, str(tmp_path / f"{name}.circuit.npz"))
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("case", ["at_sign_names", "ensemble", "incoherent_group", "save_dir"])
+def test_legacy_registry_dir_loads_as_in_the_reference(case, tmp_path):
+    """`load_legacy_registry_dir` restores the tenants, member groups and
+    circuits the reference's reader restores from the same directory (a
+    store written by today's `save_dir` holds no flat bundles: both read
+    nothing, and the store itself loads)."""
+    from repro.serve.artifacts import load_legacy_registry_dir as ref_load_legacy
+    from repro_torch.serve.artifacts import load_legacy_registry_dir
+
+    path = _legacy_layout(case, tmp_path)
+    ref, port = ref_load_legacy(path), load_legacy_registry_dir(path)
+    assert list(port) == list(ref)
+    for t in ref:
+        want, got = ref.members(t), port.members(t)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert ref_digest(b) == circuit_digest(a)
+            x = np.random.RandomState(7).randn(9, b.encoder.n_features).astype(np.float32)
+            np.testing.assert_array_equal(a.predict(x, device="cpu"), b.predict(x))
+    if case == "save_dir":
+        assert len(port) == 0
+        stored = ArtifactStore(path).load_registry()
+        assert list(stored) == ["t0", "ens"] and len(stored.members("ens")) == 2
+    else:
+        assert len(port) >= 2

@@ -30,6 +30,8 @@ the port runs with ``device="cpu"``, the reference with ``backend="ref"``.
 """
 import dataclasses
 import hashlib
+import os
+import sys
 import threading
 import warnings
 
@@ -42,6 +44,7 @@ from hypothesis import strategies as st
 
 import repro.serve.evolution.refit as ref_refit_mod
 import repro_torch.serve.evolution.refit as refit_mod
+import repro_torch.serve.evolution.refit_process as refit_process
 from repro.core import encoding as RE
 from repro.core.genome import Genome as RefGenome
 from repro.core.mutate import mutate_children as ref_mutate_children
@@ -496,19 +499,20 @@ def test_refit_worker_background_thread_delivers():
 
 
 def test_cancelled_running_job_is_discarded(monkeypatch):
-    """A job cancelled while its search runs is discarded on delivery."""
+    """A job cancelled while its search runs (in the worker's process) is
+    discarded on delivery."""
     _, live = pair(9)
     buf = P.ReplayBuffer(1000)
     buf.extend(stationary_rows(150, seed=5), RNG.randint(0, 3, 150).astype(np.int64))
     started, release = threading.Event(), threading.Event()
-    real = refit_mod.refit_circuit
+    real = refit_process.RefitProcess.refit
 
-    def slow(*args, **kw):
+    def slow(self, *args, **kw):
         started.set()
         assert release.wait(30.0)
-        return real(*args, **kw)
+        return real(self, *args, **kw)
 
-    monkeypatch.setattr(refit_mod, "refit_circuit", slow)
+    monkeypatch.setattr(refit_process.RefitProcess, "refit", slow)
     done = []
     worker = P.RefitWorker(small_worker())
     try:
@@ -555,30 +559,155 @@ def test_refit_worker_counters_are_updated_under_its_lock(monkeypatch):
 
 
 def test_failed_background_search_warns_and_the_worker_survives(monkeypatch):
+    """A search that raises in the worker's process comes back as a warning;
+    the worker thread and its process serve the next job."""
     _, live = pair(10)
     buf = P.ReplayBuffer(1000)
     buf.extend(stationary_rows(150, seed=6), RNG.randint(0, 3, 150).astype(np.int64))
+    thin = P.ReplayBuffer(1000)   # one row: refit_circuit refuses it
+    thin.extend(stationary_rows(1, seed=6), np.zeros(1, np.int64))
     calls = []
+    real = refit_process.RefitProcess.refit
 
-    def failing(*args, **kw):
+    def counted(self, *args, **kw):
         calls.append(1)
-        raise RuntimeError("search exploded")
+        return real(self, *args, **kw)
 
-    monkeypatch.setattr(refit_mod, "refit_circuit", failing)
-    worker = P.RefitWorker(small_worker())
+    monkeypatch.setattr(refit_process.RefitProcess, "refit", counted)
+    worker = P.RefitWorker(small_worker(min_replay_rows=1))
     try:
-        with pytest.warns(RuntimeWarning, match="search exploded"):
-            assert worker.request("t", live, buf, lambda r: None)
+        with pytest.warns(RuntimeWarning, match="refit needs >= 2 rows"):
+            assert worker.request("t", live, thin, lambda r: None)
             assert worker.join(timeout=30.0)
             worker._thread.join(0.2)
-        monkeypatch.setattr(refit_mod, "refit_circuit", lambda *a, **k: "ok")
+        pid = worker._child.pid
         got = []
         assert worker.request("t", live, buf, got.append)
-        assert worker.join(timeout=30.0) and got == ["ok"]
-        assert worker._thread.is_alive()
+        assert worker.join(timeout=30.0) and [r.tenant for r in got] == ["t"]
+        assert worker._thread.is_alive() and worker._child.pid == pid
+        assert worker.completed == 1
     finally:
         worker.stop()
-    assert calls == [1]
+    assert calls == [1, 1]
+
+
+def test_process_worker_candidate_equals_inline_refit(refit_case):
+    """A background worker runs the search in its own process; its result
+    is the inline `refit_circuit`'s, bit for bit (the search's generator is
+    seeded from the tenant and the refit index, not from the process)."""
+    _, live, x, y, idx, _ = refit_case
+    live = dataclasses.replace(live, lineage={"refit_generation": 1})
+    cfg = P.RefitConfig(**REFIT_KW, min_replay_rows=1, device="cpu")
+    want = P.refit_circuit("t", live, x, y, cfg, refit_index=idx)
+    buf = P.ReplayBuffer(1000)
+    buf.extend(x, y)
+    done = []
+    worker = P.RefitWorker(cfg)
+    try:
+        worker._counts["t"] = idx   # the tenant's next refit is attempt idx
+        assert worker.request("t", live, buf, done.append)
+        assert worker.join(timeout=120.0)
+        assert worker._child.pid != os.getpid()
+    finally:
+        worker.stop()
+    (got,) = done
+    assert (got.tenant, got.parent_hash, got.val_fitness, got.generations, got.replay_rows,
+            got.seeded) == (want.tenant, want.parent_hash, want.val_fitness,
+                            want.generations, want.replay_rows, want.seeded)
+    for a, b in zip(got.candidate.genome, want.candidate.genome):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got.candidate.lineage == want.candidate.lineage
+    assert got.candidate.ref_stats.tobytes() == want.candidate.ref_stats.tobytes()
+    assert got.candidate.encoder.thresholds.tobytes() == want.candidate.encoder.thresholds.tobytes()
+    assert got.candidate.encoder.codes.tobytes() == want.candidate.encoder.codes.tobytes()
+    assert (got.candidate.spec, got.candidate.n_classes) == (want.candidate.spec,
+                                                             want.candidate.n_classes)
+    assert worker.remote_launches == {"eval_population": 0, "eval_population_spans": 0}
+
+
+def test_killed_refit_process_fails_the_job_loudly(monkeypatch):
+    """A child killed during a job fails that job with a warning; nothing
+    searches on the worker thread, and the next `start` replaces the child."""
+    _, live = pair(12)
+    buf = P.ReplayBuffer(1000)
+    buf.extend(stationary_rows(150, seed=7), RNG.randint(0, 3, 150).astype(np.int64))
+    inline = []
+    monkeypatch.setattr(refit_mod, "refit_circuit", lambda *a, **k: inline.append(1))
+    started = threading.Event()
+    real = refit_process.RefitProcess.refit
+
+    def killed(self, *args, **kw):
+        self.proc.kill()
+        self.proc.wait()
+        started.set()
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(refit_process.RefitProcess, "refit", killed)
+    done = []
+    worker = P.RefitWorker(small_worker())
+    try:
+        with pytest.warns(RuntimeWarning, match="died during the job"):
+            assert worker.request("t", live, buf, done.append)
+            assert started.wait(60.0) and worker.join(timeout=60.0)
+            worker._thread.join(0.2)
+        assert done == [] and worker.completed == 0 and not worker.busy("t")
+        old = worker._child.pid
+        monkeypatch.setattr(refit_process.RefitProcess, "refit", real)
+        assert worker.request("t", live, buf, done.append)
+        assert worker.join(timeout=60.0) and len(done) == 1 and worker.completed == 1
+        assert worker._child.pid != old
+    finally:
+        worker.stop()
+    assert inline == []
+
+
+def test_refit_process_that_cannot_start_raises(monkeypatch):
+    """A child that exits before it is ready makes `start` raise, and a
+    request that needed it raises too, leaving nothing in flight."""
+    _, live = pair(13)
+    buf = P.ReplayBuffer(1000)
+    buf.extend(stationary_rows(150, seed=8), RNG.randint(0, 3, 150).astype(np.int64))
+    monkeypatch.setattr(refit_mod, "refit_circuit", lambda *a, **k: pytest.fail("inline"))
+    monkeypatch.setattr(refit_process, "child_argv",
+                        lambda *a: [sys.executable, "-c", "import sys; sys.exit(3)"])
+    worker = P.RefitWorker(small_worker())
+    with pytest.raises(refit_process.RefitProcessError, match="code 3"):
+        worker.start()
+    with pytest.raises(refit_process.RefitProcessError, match="code 3"):
+        worker.request("t", live, buf, lambda r: None)
+    assert not worker.busy() and worker.completed == 0
+    worker.stop()
+
+
+def test_cancelled_queued_job_never_reaches_the_process(monkeypatch):
+    """`cancel` drops a job queued behind a running one: it is never sent to
+    the child, and `join` returns once both have left."""
+    _, live = pair(14)
+    buf = P.ReplayBuffer(1000)
+    buf.extend(stationary_rows(150, seed=9), RNG.randint(0, 3, 150).astype(np.int64))
+    sent, release = [], threading.Event()
+    real = refit_process.RefitProcess.refit
+
+    def held(self, tenant, *args, **kw):
+        sent.append(tenant)
+        assert release.wait(30.0)
+        return real(self, tenant, *args, **kw)
+
+    monkeypatch.setattr(refit_process.RefitProcess, "refit", held)
+    done = []
+    worker = P.RefitWorker(small_worker())
+    try:
+        assert worker.request("a", live, buf, done.append)
+        assert worker.request("b", live, buf, done.append)
+        assert worker.busy("b") and worker.cancel("b")
+        assert not worker.join(timeout=0.2)
+        release.set()
+        assert worker.join(timeout=60.0)
+    finally:
+        release.set()
+        worker.stop()
+    assert sent == ["a"] and [r.tenant for r in done] == ["a"]
+    assert worker.completed == 1 and worker.discarded == 0
 
 
 def test_refit_defaults_to_the_card():

@@ -56,6 +56,11 @@ def test_port_has_modules():
                  "repro_torch.serve.evolution.refit",
                  "repro_torch.serve.evolution.promote",
                  "repro_torch.serve.evolution.manager",
+                 "repro_torch.serve.evolution.refit_process",
+                 "repro_torch.serve.fleet", "repro_torch.serve.fleet.plan",
+                 "repro_torch.serve.fleet.workload", "repro_torch.serve.fleet.cadence",
+                 "repro_torch.serve.fleet.transport", "repro_torch.serve.fleet.artifact",
+                 "repro_torch.serve.fleet.host", "repro_torch.serve.fleet.router",
                  "repro_torch.serve.observability.export"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
@@ -125,6 +130,36 @@ def test_evolution_and_export_entry_points_import_with_jax_and_repro_blocked():
                        text=True, timeout=120, env=env, cwd=str(REPO))
     assert r.returncode == 0, r.stderr
     assert "evolution ok" in r.stdout
+
+
+def test_fleet_and_refit_child_entry_points_import_with_jax_and_repro_blocked():
+    """The fleet, and what the two child interpreters run (the refit
+    process's boot and job loop, the subprocess host's script), import
+    neither JAX nor the reference; the host takes ``device``."""
+    script = (
+        "import inspect, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{str(REPO / 'src')!r}]\n"
+        "from repro_torch.serve import fleet\n"
+        "from repro_torch.serve.evolution import refit_process\n"
+        "from repro_torch.serve.fleet import transport\n"
+        "refit_process._boot('cpu')\n"
+        "from repro_torch.serve.evolution.refit import refit_circuit\n"
+        "head = transport._HOST_MAIN.split('cfg = ')[0]\n"
+        "exec(head)\n"
+        "for fn in (fleet.ServingHost, fleet.ServingHost.boot_from_artifact,\n"
+        "           fleet.spawn_host_process):\n"
+        "    params = inspect.signature(fn).parameters\n"
+        "    assert 'device' in params and 'backend' not in params, (fn, list(params))\n"
+        "assert set(fleet.__all__) >= {'FleetRouter', 'ServingHost', 'spawn_host_process'}\n"
+        "print('fleet ok', len(fleet.__all__))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr
+    assert "fleet ok 22" in r.stdout
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
