@@ -19,7 +19,8 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 mixed widths, misaligned / negative / off-the-end offsets,
                 and the isolation case.
                 The fit shape: λ = 4 mutated children of a 300-gate genome
-                over 116 input rows at W = 2,452 and a misaligned W.
+                over 116 input rows at W = 2,452 and a misaligned W; an
+                island rank's (phase 4g): the same at W = 1,226.
   3. predict  — the reference-fitted golden bundles (tests/torch_golden/)
                 predict every row of their datasets through
                 `ServableCircuit.predict` on the card; the class ids must
@@ -151,6 +152,24 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 expects.  The line has each replay's requests/s, rows/s,
                 wall s, migrations and router report, the subprocess
                 host's boot s, the boot's ms and the launches.
+  4g. islands — `examples/evolve_distributed.py`'s layout on the card:
+                4 islands × 2 data shards = 8 ranks (`launch_islands`,
+                fresh interpreters joined in one gloo group through a file
+                store, all on the one card) on higgs at full size (W =
+                2,452 training words, 1,226 per shard; one 4-bit quantile
+                encoding, I = 116), n = 300, λ = 4, κ = 300, G = 1,000,
+                migrate_every = 32.  Every rank's eval_population launches
+                equal its evaluations (its island's generations + 1, in
+                its own process); every island's final genomes,
+                ``best_val``, ``best_train``, ``parent_fit`` and generation
+                count equal `evolve_islands_plain` in this process on the
+                card through the plain versions, which launches nothing;
+                the final parents and bests, evaluated through 2 shards
+                with a gloo ``all_reduce``, score bitwise as on 1 shard.
+                The line has each island's generations/s, each rank's
+                boot s and collective ms per generation (data
+                ``all_reduce``, ring, live ``all_reduce``) and the best
+                island's fitness.
   5. fit      — `AutoTinyClassifier(n_gates=300, λ=4, κ=300, G=2000)` over
                 the four default encodings on higgs (98,050 rows, 80/20
                 train/test split: W = 2,452 words of training rows), on
@@ -199,15 +218,39 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 phase 10 under `torch.profiler`: per step the stream's
                 period and the device's busy ms, and the device's idle
                 share of an unprofiled step.
+ 12. lm       — the attention-only LM serving path (`CausalLM`, `Engine`),
+                plain PyTorch on the card (the reference runs it in `jnp`,
+                outside any Pallas kernel, so no kernel of the table runs
+                here and none is launched).  (a) minitron-8b at full width
+                and depth (32 layers, d = 4,096, vocab 256,000: 7.74 B
+                random bf16 parameters drawn on the card, every one of
+                them there): `Engine(batch_size=4, max_len=512)` serves 8
+                requests of 256-token prompts and 32 new tokens, greedy;
+                its tokens must equal a hand-made prefill + decode argmax
+                chain at the same batch, and one request's decode logits
+                must agree with `forward` over its whole sequence: every
+                position's relative L2 gap within `LM_REL_L2_LIMIT`, and
+                the gap of a planted fault (RoPE one position on) past it
+                (a zeroed cached row is read too, not checked).  The line has prefill ms,
+                decode ms per token beside its bound (every weight but the
+                embedding table read once a step at 3.35 TB/s) and
+                tokens/s.  (b) starcoder2-7b at full width
+                with 4 of its 32 layers: a 4,608-token prompt through the
+                chunked prefill (4 calls), its ring wrapped past the 4,096
+                window, then 8 decoded tokens against `forward`.  (c) the
+                committed reference fixture (`lm_minitron_smoke.npz`) in
+                float32: the same greedy tokens, logits within 1e-5.
 
 Launch counts are set to 0 just before each main-path phase (3, 4, 4b,
-4c, 4d, 4e, 4f, 5 and 10: the fits, then each fitted classifier's predict
+4c, 4d, 4e, 4f, 5, 10 and 12: the fits, then each fitted classifier's predict
 and its netlist check; in 4b before each tick, swap and the boot; in 4c
 before the traffic and before the facade; in 4e before the parent's fit,
 read after the oracle, the refit process counting its own searches' launches;
 in 4f before each replay, the subprocess host's join, replay and leave,
-the boot and its first answers, and the evolution RPCs' submit) and read
-just after; a kernel of the path that did not launch fails the run.
+the boot and its first answers, and the evolution RPCs' submit; in 4g
+each rank counts its own from its start, and the replay is counted from
+0; in 12 nothing may launch) and read just after; a kernel of the path
+that did not launch fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -217,6 +260,12 @@ runs this tree's smoke run and DIR's (another checkout, e.g. the parent
 commit unpacked with ``git archive``) in turns on one card and prints each
 run's kernel times, launch phases and swap numbers (``swap_ms``, the first
 post-swap and the steady tick latency), then the medians per tree.
+
+    python3 chip_smoke.py --lm-calibrate N
+
+runs only phase 12's decode-against-forward reading, over N seeds of
+weights and prompt, clean and with each planted fault: the readings that
+`LM_REL_L2_LIMIT` is set from.
 """
 from __future__ import annotations
 
@@ -253,7 +302,10 @@ from repro_torch.core.baselines.gbdt import (  # noqa: E402
 from repro_torch.core.baselines.mlp import (  # noqa: E402
     BEST_MLP, SMALLEST_MLP, mlp_params_from_arrays, mlp_predict, train_mlp)
 from repro_torch.core.gates import BUF_A, FULL_FS, NOT_A  # noqa: E402
-from repro_torch.core.genome import CircuitSpec, init_genome, opcodes  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.genome import CircuitSpec, Genome, init_genome, opcodes  # noqa: E402
+from repro_torch.core.islands import (  # noqa: E402
+    COLLECTIVES, IslandConfig, best_island, evolve_islands_plain, pad_words_for)
 from repro_torch.core.mutate import mutate_children  # noqa: E402
 from repro_torch.core.netlist import eval_netlist  # noqa: E402
 from repro_torch.core.verilog import simulate_verilog  # noqa: E402
@@ -261,11 +313,16 @@ from repro_torch.data import load_dataset, train_test_split  # noqa: E402
 from repro_torch.kernels import circuit_eval  # noqa: E402
 from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels.program import compile_program  # noqa: E402
+from repro_torch.launch.islands import launch_islands, spawn_ranks  # noqa: E402
+from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models.convert import init_params, params_from_reference  # noqa: E402
+from repro_torch.models.lm import CausalLM  # noqa: E402
 from repro_torch.runtime import aot  # noqa: E402
 from repro_torch.serve.artifacts import ArtifactStore  # noqa: E402
 from repro_torch.serve.async_frontend import AsyncCircuitServer  # noqa: E402
 from repro_torch.serve.autoscale import (  # noqa: E402
     AutoscaleController, AutoscaleDecision, HysteresisPolicy)
+from repro_torch.serve import engine as lm_engine  # noqa: E402
 from repro_torch.serve.circuits import (  # noqa: E402
     CircuitRegistry, CircuitServer, StalePlanError, TenantQoS)
 from repro_torch.serve.evolution import (  # noqa: E402
@@ -280,6 +337,8 @@ from repro_torch.serve.planning import (  # noqa: E402
     PlacementPolicy, PlanCompiler, circuit_digest, ensemble_vote)
 
 GOLDEN = os.path.join(ROOT, "tests", "torch_golden")
+sys.path.insert(0, GOLDEN)
+import make_lm_golden  # noqa: E402  (numpy only until its build() runs)
 SEED = 0
 DEVICE = "cuda"  # every tensor and entry point of the run
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and 32-bit integer
@@ -289,15 +348,17 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # (features, bits/input, gates, classes) of the serving benchmark's tenants
 SERVE_SHAPES = [(4, 2, 60, 2), (7, 4, 120, 3), (3, 2, 40, 4), (10, 4, 200, 5),
                 (6, 2, 80, 2), (12, 4, 300, 8)]
-# (inputs, gates, outputs, population, words) for the kernel checks; the
-# last three are the evolve path's: the refit's and the oracle's λ children
-# over a 2,048-row window, the parent fit's over 3,000 rows, and the scorer's
-# one-circuit predicts and a tick's two slots (live and shadow) of 64 rows
+# (inputs, gates, outputs, population, words) for the kernel checks; then
+# the evolve path's three: the refit's and the oracle's λ children over a
+# 2,048-row window, the parent fit's over 3,000 rows, and the scorer's
+# one-circuit predicts and a tick's two slots (live and shadow) of 64 rows;
+# last the islands path's: an island rank's λ children over its shard of
+# the higgs training words (2,452 / 2)
 CHECK_SHAPES = [(4, 10, 1, 1, 2), (8, 50, 1, 4, 11), (16, 100, 2, 5, 32),
                 (32, 300, 4, 3, 128), (100, 300, 2, 2, 313), (6, 17, 3, 7, 1),
                 (116, 300, 1, 1, 3065), (476, 300, 1, 3, 700),
                 (32, 400, 4, 3, 129), (24, 100, 1, 4, 64), (24, 100, 1, 4, 94),
-                (24, 100, 1, 2, 6)]
+                (24, 100, 1, 2, 6), (116, 300, 1, 4, 1226)]
 # the fit path: λ children of a 300-gate genome over the higgs training
 # rows at 4 bits per input (I = 29 x 4), at its W and a misaligned W
 FIT_CHECK = (116, 300, 1, 4)  # (inputs, gates, outputs, population)
@@ -369,6 +430,34 @@ EVOLVE_TRACE_EVENTS = 1 << 20   # the stack's timeline: about 25 events a reques
 FLEET_HOSTS, FLEET_TENANTS, FLEET_EVENTS, FLEET_CHUNK = 2, 8, 100_000, 2048
 FLEET_TRACE = os.path.join(ROOT, "benchmarks", "workloads", "fleet_smoke.jsonl.gz")
 FLEET_TRACE_CHUNK, FLEET_PROC_EVENTS = 500, 4096
+# islands: examples/evolve_distributed.py's layout (4 islands x 2 data
+# shards = 8 ranks, all on the one card) on higgs at full size (W = 2,452
+# training words, 1,226 per shard), the fit's n = 300, lambda = 4,
+# kappa = 300, G = 1,000 and the reference's migrate_every = 32
+ISLANDS, ISLAND_SHARDS, ISLAND_GATES, ISLAND_GENS, ISLAND_MIGRATE = 4, 2, 300, 1000, 32
+ISLAND_TIMEOUT_S = 600.0
+# lm: (a) minitron-8b at full width and depth, random bf16 weights, Engine
+# at batch 4 and max_len 512 serving 8 requests of 256-token prompts and
+# 32 new tokens, greedy; (b) starcoder2-7b at full width with 4 of its 32
+# layers, one 4,608-token prompt (a multiple of both chunk sizes, past the
+# 4,096 window) and 8 decoded tokens; (c) the committed reference fixture
+# in float32, within the CPU tests' tolerance
+LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 256, 32, 512
+STARCODER_LAYERS, STARCODER_PROMPT, STARCODER_NEW = 4, 4608, 8
+LM_GOLDEN_TOL = 1e-5
+# decode against `forward` over the same sequence: at every position the
+# relative L2 gap of the logits, ||decode - forward|| / ||forward|| over the
+# vocabulary, stays within this limit, and each checked fault, planted in a
+# decode of the same tokens (`forced_decode`), goes past it.  Over 4 seeds
+# `python3 chip_smoke.py --lm-calibrate 4` read (H100 80GB HBM3, 700 W;
+# PERF.md §6) clean gaps of at most 0.01347 (minitron) and 0.00889
+# (starcoder2, 4 layers), RoPE one position on at least 0.0598 and 0.0977,
+# and a zeroed cache row at least 0.0213 and 0.00906; the limit is twice
+# the clean gap.  The zeroed row lies within 3x the clean gap, so it is
+# read but not checked: the f32 fixture and the CPU tests hold the cache
+LM_REL_L2_LIMIT = {"minitron-8b": 0.027, "starcoder2-7b": 0.018}
+LM_FAULTS = ("rope_position_plus_one", "cache_row_zeroed")
+LM_CHECKED_FAULTS = ("rope_position_plus_one",)
 
 
 class SmokeFailure(RuntimeError):
@@ -2057,6 +2146,105 @@ def phase_fleet() -> dict:
     return {"fleet": counts.total["eval_population_spans"]}
 
 
+# -- phase 4g: islands ------------------------------------------------------
+def island_problem(split):
+    """higgs's training rows at full size (W = 2,452 words), one 4-bit
+    quantile encoding (I = 116), packed on the host and padded for the
+    shards, with the fit's train/val masks."""
+    ds, tr, _ = split
+    enc = E.fit_encoder(tr.x, E.EncodingConfig("quantile", 4))
+    bits = E.encode(enc, tr.x)
+    data = E.pack_dataset(bits, tr.y, ds.n_classes, pad_words_to=pad_words_for(ISLAND_SHARDS),
+                          device="cpu")
+    masks = E.split_masks(len(tr.y), data.x_words.shape[1], 0.5, SEED, device="cpu")
+    spec = CircuitSpec(bits.shape[1], ISLAND_GATES, data.n_outputs, FULL_FS)
+    return spec, data, masks
+
+
+def island_fitness_check(spec, data, masks, genomes) -> dict:
+    """A population's fitness through 2 shards (two processes on the card,
+    the counts summed by a gloo ``all_reduce``) against 1 shard, bitwise."""
+    payload = {"problems": [{"data": [a.numpy() for a in data],
+                             "masks": [m.numpy() for m in masks], "spec": spec,
+                             "genomes": genomes}]}
+    ranks = spawn_ranks("repro_torch.launch.islands:fitness_rank", payload, 2,
+                        device=DEVICE, timeout_s=ISLAND_TIMEOUT_S)
+    bad = 0
+    for r in ranks:
+        for a, b in zip(r["sharded"][0], r["whole"][0]):
+            bad += int((np.asarray(a).view(np.uint32) != np.asarray(b).view(np.uint32)).sum())
+    return {"population": int(genomes.gate_fn.shape[0]), "shards": 2, "mismatches": bad,
+            "launches_per_rank": [r["launches"]["eval_population"] for r in ranks]}
+
+
+def same_island(a, b) -> bool:
+    return (all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a.best, b.best))
+            and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a.parent, b.parent))
+            and all(getattr(a, f).tobytes() == getattr(b, f).tobytes()
+                    for f in ("best_val", "best_train", "parent_fit"))
+            and int(a.gen) == int(b.gen))
+
+
+def phase_islands(split) -> int:
+    """Island-parallel evolution on the card (phase 4g of the module doc);
+    returns the ranks' eval_population launches."""
+    t_phase = time.perf_counter()
+    spec, data, masks = island_problem(split)
+    cfg = EvolveConfig(lam=FIT_KW["lam"], kappa=FIT_KW["kappa"], max_gens=ISLAND_GENS)
+    icfg = IslandConfig(migrate_every=ISLAND_MIGRATE, n_data=ISLAND_SHARDS)
+    t0 = time.perf_counter()
+    run = launch_islands(SEED, spec, cfg, icfg, ISLANDS, data, *masks, device=DEVICE,
+                         timeout_s=ISLAND_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    ranks = []
+    for r in run.ranks:
+        t, state = r["timings"], run.states[r["island"]]
+        ranks.append({
+            "rank": r["rank"], "island": r["island"], "shard": r["shard"],
+            "boot_s": r["boot_s"], "evolve_s": t["evolve_s"], "iterations": t["iterations"],
+            "evaluations": t["evaluations"], "launches": r["launches"],
+            "gens_per_s": int(state.gen) / t["evolve_s"], "phase_ms": t["phase_ms"],
+            "collective_ms_per_generation": {k: 1e3 * t[k] / max(t["iterations"], 1)
+                                             for k in COLLECTIVES}})
+        check(r["launches"]["eval_population"] > 0
+              and r["launches"]["eval_population"] == t["evaluations"] == int(state.gen) + 1,
+              f"islands rank {r['rank']}: {r['launches']} launches for {t['evaluations']} "
+              f"evaluations (island {r['island']}: {int(state.gen)} generations + 1)")
+        check(r["launches"]["eval_population_spans"] == 0, "an island rank launched spans")
+    # the same program in one process on the card through the plain versions
+    circuit_eval.reset_launch_counts()
+    t0 = time.perf_counter()
+    plain_states = evolve_islands_plain(SEED, spec, cfg, icfg, ISLANDS,
+                                        E.PackedDataset(*to_dev(*data)), *to_dev(*masks),
+                                        backend="torch-ref")
+    replay_s = time.perf_counter() - t0
+    replay_launches = launch_counts()
+    same = [same_island(a, b) for a, b in zip(run.states, plain_states)]
+    pop = Genome(*(torch.stack([getattr(s, g)[i] for s in run.states for g in ("parent", "best")])
+                   for i in range(3)))
+    fitness = island_fitness_check(spec, data, masks, pop)
+    best = best_island(run.states)
+    out = {"phase": "islands", "card": gpu_line(), "islands": ISLANDS, "shards": ISLAND_SHARDS,
+           "words": int(data.x_words.shape[1]),
+           "words_per_shard": int(data.x_words.shape[1]) // ISLAND_SHARDS,
+           "inputs": spec.n_inputs, "gates": spec.n_nodes, "lam": cfg.lam,
+           "kappa": cfg.kappa, "max_gens": cfg.max_gens, "migrate_every": ISLAND_MIGRATE,
+           "launch_s": launch_s, "ranks": ranks,
+           "island_generations": [int(s.gen) for s in run.states],
+           "island_best_val": [float(s.best_val) for s in run.states],
+           "best_island_val": float(best.best_val), "best_island_train": float(best.best_train),
+           "plain_replay": {"same": same, "seconds": replay_s, "launches": replay_launches},
+           "sharded_fitness": fitness, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    check(all(same), f"islands: the run differs from the plain replay: {same}")
+    check(replay_launches["eval_population"] == 0 and replay_launches["eval_population_spans"] == 0,
+          f"the plain replay launched a kernel: {replay_launches}")
+    check(fitness["mismatches"] == 0,
+          f"islands: 2-shard fitness differs from 1 shard in {fitness['mismatches']} values")
+    check(len(run.ranks) == ISLANDS * ISLAND_SHARDS, "islands: a rank is missing")
+    return sum(r["launches"]["eval_population"] for r in run.ranks)
+
+
 # -- phase 5 ----------------------------------------------------------------
 def higgs_split():
     """higgs (98,050 rows), split 80/20 by the port's `train_test_split`."""
@@ -2693,6 +2881,297 @@ def phase_mlp_profile(baselines) -> dict:
     return out
 
 
+# -- phase 12: the LM serving path ------------------------------------------
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Each position's ||got - want|| / ||want|| over the vocabulary."""
+    got, want = got.float(), want.float()
+    return (got - want).norm(dim=-1) / want.norm(dim=-1)
+
+
+def forced_decode(model, prompt: torch.Tensor, fed: torch.Tensor, max_len: int,
+                  fault: str) -> torch.Tensor:
+    """Prefill ``prompt``, then decode the tokens ``fed`` (1, n - 1) one by
+    one with ``fault`` planted: the n steps' logits (n, V), the prefill's
+    first.  ``rope_position_plus_one``: decode rotates q and k one
+    position too far; ``cache_row_zeroed``: after the prefill, every
+    layer's cached k and v of the prompt's last token are zeros."""
+    if fault == "rope_position_plus_one":
+        real = model._positions
+        model._positions = lambda b, s, offset=0: real(b, s, offset + 1 if s == 1 else offset)
+    try:
+        logits, cache = model.prefill(tokens=prompt, max_len=max_len)
+        if fault == "cache_row_zeroed":
+            slot = (prompt.shape[1] - 1) % cache["k"].shape[2]
+            cache["k"][:, :, slot] = 0
+            cache["v"][:, :, slot] = 0
+        out = [logits[0]]
+        for i in range(fed.shape[1]):
+            logits, cache = model.decode_step(cache, token=fed[:, i:i + 1])
+            out.append(logits[0])
+    finally:
+        model.__dict__.pop("_positions", None)
+    return torch.stack(out)
+
+
+def synced(fn):
+    """(result, host ms) of ``fn`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def greedy_chain(model, tokens: torch.Tensor, steps: int, max_len: int) -> tuple:
+    """Prefill then ``steps`` greedy decode steps by hand: (tokens (B, steps),
+    each step's logits, prefill ms, each decode step's ms)."""
+    logits, prefill_ms = synced(lambda: model.prefill(tokens=tokens, max_len=max_len))
+    logits, cache = logits
+    out, steps_logits, decode_ms = [], [logits], []
+    for i in range(steps):
+        tok = torch.argmax(logits.float(), dim=-1)
+        out.append(tok)
+        if i + 1 < steps:
+            (logits, cache), ms = synced(lambda: model.decode_step(cache, token=tok[:, None]))
+            steps_logits.append(logits)
+            decode_ms.append(ms)
+    return torch.stack(out, dim=1).cpu().numpy(), steps_logits, prefill_ms, decode_ms
+
+
+def against_forward(model, prompt: torch.Tensor, chain_tokens: np.ndarray, chain_logits,
+                    max_len: int) -> dict:
+    """One request's decode logits against `forward` over its whole
+    sequence (prompt and the tokens fed back): the largest relative L2 gap
+    of a position (`rel_l2`), and the same for a decode of those tokens
+    with each of `LM_FAULTS` planted.  The tokens must agree wherever
+    forward's top-2 margin exceeds twice the largest logit gap measured,
+    which no gap of that size can flip."""
+    n = len(chain_logits)
+    fed = torch.as_tensor(chain_tokens[:1, :n - 1], device=DEVICE)
+    full, _, _ = model.forward(tokens=torch.cat([prompt, fed], dim=1))
+    want = full[0, prompt.shape[1] - 1:]                      # (n, V)
+    got = torch.stack([lg[0] for lg in chain_logits])         # (n, V)
+    err = float((got.float() - want.float()).abs().max())
+    top2 = torch.topk(want.float(), 2, dim=-1).values
+    sure = ((top2[:, 0] - top2[:, 1]) > 2 * err).cpu().numpy()
+    agree = torch.argmax(want.float(), -1).cpu().numpy() == chain_tokens[0, :n]
+    faults = {f: float(rel_l2(forced_decode(model, prompt, fed, max_len, f), want).max())
+              for f in LM_FAULTS}
+    return {"positions": n, "max_rel_l2": float(rel_l2(got, want).max()),
+            "limit": LM_REL_L2_LIMIT.get(model.cfg.name), "faults_max_rel_l2": faults,
+            "max_abs_err": err, "max_abs_logit": float(want.float().abs().max()),
+            "tokens_agree": int(agree.sum()), "tokens_sure": int(sure.sum()),
+            "sure_tokens_disagree": int((~agree & sure).sum())}
+
+
+def check_decode(name: str, r: dict) -> None:
+    """`against_forward`'s reading within its limit, and every checked
+    fault past it."""
+    check(r["max_rel_l2"] <= r["limit"], f"{name}: decode differs from forward by a "
+                                         f"relative L2 of {r['max_rel_l2']} > {r['limit']}")
+    for fault in LM_CHECKED_FAULTS:
+        gap = r["faults_max_rel_l2"][fault]
+        check(gap > r["limit"], f"{name}: the planted fault {fault} moves decode by "
+                                f"{gap}, within the limit {r['limit']}")
+    check(r["sure_tokens_disagree"] == 0, f"{name}: a sure greedy token differs")
+
+
+def decode_profile(model, cache: dict, token: torch.Tensor) -> dict:
+    """One decode step under `torch.profiler`: its kernels, the device's
+    busy ms and the step's wall ms (the device's idle share between)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(cache, token=token)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    return {"device_events": len(device), "device_busy_ms": busy_ms, "wall_ms": wall_ms,
+            "idle_share": None if not device else 1 - busy_ms / wall_ms}
+
+
+def lm_minitron() -> dict:
+    """(a): minitron-8b at full width and depth, random bf16 weights."""
+    cfg = get_config("minitron-8b")
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = synced(lambda: init_params(
+        torch.Generator(device=DEVICE).manual_seed(SEED), cfg, DEVICE))
+    model = CausalLM(cfg, params, device=DEVICE)   # shares the tensors of params
+    n = sum(p.numel() for p in model.parameters())
+    on_card = all(p.device.type == "cuda" for p in model.parameters())
+    rng = np.random.RandomState(SEED)
+    prompts = rng.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
+    greedy_chain(model, torch.as_tensor(prompts[:1, :8], device=DEVICE), 2, 16)  # warm-up
+    engine = lm_engine.Engine(cfg, params, batch_size=LM_BATCH, max_len=LM_MAX_LEN, seed=SEED)
+    del params
+    reqs = [lm_engine.Request(uid=i, prompt=p, max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    report = lm_engine.throughput_report(engine, reqs)
+    chains, prefill_ms, decode_ms = [], [], []
+    for b in range(0, LM_REQUESTS, LM_BATCH):
+        toks, _, pms, dms = greedy_chain(model, torch.as_tensor(prompts[b:b + LM_BATCH],
+                                                                device=DEVICE),
+                                         LM_NEW, LM_MAX_LEN)
+        chains.append(toks)
+        prefill_ms.append(pms)
+        decode_ms.extend(dms)
+    chain = np.concatenate(chains)
+    engine_mismatches = int((np.asarray([r.output for r in reqs]) != chain).sum())
+    one_tokens, one_logits, _, _ = greedy_chain(
+        model, torch.as_tensor(prompts[:1], device=DEVICE), LM_NEW, LM_MAX_LEN)
+    _, cache = model.prefill(tokens=torch.as_tensor(prompts[:LM_BATCH], device=DEVICE),
+                             max_len=LM_MAX_LEN)
+    profiled = decode_profile(model, cache, torch.as_tensor(chain[:LM_BATCH, :1], device=DEVICE))
+    del cache
+    vs_forward = against_forward(model, torch.as_tensor(prompts[:1], device=DEVICE),
+                                 one_tokens, one_logits, LM_MAX_LEN)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    # a step reads every weight but the embedding table, of which it
+    # gathers one row per sequence of the batch
+    step_bytes = (weight_bytes - model.embed.numel() * model.embed.element_size()
+                  + LM_BATCH * cfg.d_model * model.embed.element_size())
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "dtype": cfg.dtype, "parameters": n,
+           "n_params_formula": cfg.n_params(), "weight_bytes": weight_bytes,
+           "all_on_card": on_card, "init_ms": init_ms,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "requests": LM_REQUESTS, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "new_tokens": LM_NEW, "max_len": LM_MAX_LEN, "engine": report,
+           "engine_vs_chain_mismatches": engine_mismatches,
+           "prefill_ms": prefill_ms, "prefill_tokens_per_s": [
+               LM_BATCH * LM_PROMPT / (ms / 1e3) for ms in prefill_ms],
+           "decode_ms_per_token_median": statistics.median(decode_ms),
+           "decode_ms_per_token_min": min(decode_ms),
+           "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "decode_bound_by": "bytes: every weight but the embedding table read once per "
+                              "step, and the batch's embedding rows, at 3.35 TB/s",
+           "decode_profile": profiled, "decode_vs_forward": vs_forward}
+    del model, engine
+    check(on_card, "minitron-8b: a parameter is not on the card")
+    check(n == cfg.n_params() - cfg.d_model,
+          f"minitron-8b: {n} parameters; the formula says {cfg.n_params()} (+ d for ln_f)")
+    check(engine_mismatches == 0, f"minitron-8b: the engine's tokens differ from the hand-made "
+                                  f"chain in {engine_mismatches} places")
+    check_decode("minitron-8b", vs_forward)
+    return out
+
+
+def lm_starcoder2() -> dict:
+    """(b): starcoder2-7b at full width, 4 of its 32 layers: a 4,608-token
+    prompt through the chunked path, the ring wrapped past the 4,096
+    window, then 8 decoded tokens against `forward`."""
+    cfg = dataclasses.replace(get_config("starcoder2-7b"), n_layers=STARCODER_LAYERS)
+    model = CausalLM(cfg, init_params(torch.Generator(device=DEVICE).manual_seed(SEED + 1),
+                                      cfg, DEVICE), device=DEVICE)
+    prompt = torch.as_tensor(np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab, (1, STARCODER_PROMPT)).astype(np.int32), device=DEVICE)
+    chunked = []
+    real = lm_attention.gqa_attention_chunked
+
+    def counting(*a, **kw):
+        chunked.append(a[0].shape[1])
+        return real(*a, **kw)
+
+    lm_attention.gqa_attention_chunked = counting
+    try:
+        toks, logits, prefill_ms, decode_ms = greedy_chain(
+            model, prompt, STARCODER_NEW, STARCODER_PROMPT + STARCODER_NEW)
+    finally:
+        lm_attention.gqa_attention_chunked = real
+    vs_forward = against_forward(model, prompt, toks, logits, STARCODER_PROMPT + STARCODER_NEW)
+    ring = model.cache_len(STARCODER_PROMPT + STARCODER_NEW)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(cfg.name).n_layers,
+           "d_model": cfg.d_model, "window": cfg.window, "prompt": STARCODER_PROMPT,
+           "ring_slots": ring, "ring_wrapped": STARCODER_PROMPT >= ring,
+           "chunked_prefill_calls": len(chunked), "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, "decode_vs_forward": vs_forward}
+    del model
+    check(len(chunked) == cfg.n_layers and STARCODER_PROMPT > ring,
+          f"starcoder2: the prefill took the chunked path {len(chunked)} times "
+          f"(ring of {ring} slots)")
+    check_decode("starcoder2", vs_forward)
+    return out
+
+
+def lm_golden() -> dict:
+    """(c): the reference's minitron smoke fixture in float32 on the card."""
+    arrays = np.load(make_lm_golden.PATH)
+    cfg = get_config(make_lm_golden.ARCH).smoke()
+    model = CausalLM(cfg, params_from_reference(make_lm_golden.param_tree(arrays), cfg, DEVICE),
+                     device=DEVICE)
+    want = arrays["tokens"]
+    toks, logits, _, _ = greedy_chain(model, torch.as_tensor(arrays["prompt"], device=DEVICE),
+                                      want.shape[1], arrays["prompt"].shape[1] + want.shape[1])
+    want_logits = np.concatenate([arrays["prefill_logits"][:, None],
+                                  arrays["decode_logits"][:, :want.shape[1] - 1]], axis=1)
+    got_logits = torch.stack(logits, dim=1).cpu().numpy()
+    err = float(np.abs(got_logits - want_logits).max())
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "token_mismatches": int((toks != want).sum()),
+           "max_abs_err": err, "tolerance": LM_GOLDEN_TOL}
+    check(out["token_mismatches"] == 0, "the LM fixture's greedy tokens differ on the card")
+    check(err <= LM_GOLDEN_TOL, f"the LM fixture's logits differ by {err} on the card")
+    return out
+
+
+def phase_lm() -> dict:
+    """The attention-only LM serving path on the card (phase 12 of the
+    module doc).  No kernel of the table runs on it."""
+    t_phase = time.perf_counter()
+    circuit_eval.reset_launch_counts()
+    out = {"phase": "lm", "card": gpu_line(), "minitron_8b": lm_minitron()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["starcoder2_7b"] = lm_starcoder2()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["golden"] = lm_golden()
+    out["launches"] = launch_counts()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    check(not any(out["launches"].values()),
+          f"the LM path launched a circuit kernel: {out['launches']}")
+    return out
+
+
+def lm_calibrate(seeds: int) -> int:
+    """``--lm-calibrate N``: the readings that `LM_REL_L2_LIMIT` is set
+    from.  For each of the phase's two models (minitron-8b at full size,
+    starcoder2-7b at 4 layers, the same prompt lengths and decode
+    lengths) and each of N seeds of weights and prompt: `against_forward`'s
+    clean gap and each planted fault's.  One line per run, then one with
+    the largest clean gap and each fault's smallest gap per model."""
+    runs, summary = [], {}
+    cases = (("minitron-8b", None, LM_PROMPT, LM_NEW, LM_MAX_LEN),
+             ("starcoder2-7b", STARCODER_LAYERS, STARCODER_PROMPT, STARCODER_NEW,
+              STARCODER_PROMPT + STARCODER_NEW))
+    for arch, layers, n_prompt, n_new, max_len in cases:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+        for seed in range(seeds):
+            model = CausalLM(cfg, init_params(torch.Generator(device=DEVICE).manual_seed(seed),
+                                              cfg, DEVICE), device=DEVICE)
+            prompt = torch.as_tensor(np.random.RandomState(seed).randint(
+                0, cfg.vocab, (1, n_prompt)).astype(np.int32), device=DEVICE)
+            toks, logits, _, _ = greedy_chain(model, prompt, n_new, max_len)
+            run = {"arch": arch, "layers": cfg.n_layers, "seed": seed,
+                   **against_forward(model, prompt, toks, logits, max_len)}
+            emit(run)
+            runs.append(run)
+            del model, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        mine = [r for r in runs if r["arch"] == arch]
+        summary[arch] = {"clean_max": max(r["max_rel_l2"] for r in mine),
+                         **{f + "_min": min(r["faults_max_rel_l2"][f] for r in mine)
+                            for f in LM_FAULTS}}
+    emit({"phase": "lm_calibrate", "card": gpu_line(), "seeds": seeds, "summary": summary})
+    return 0
+
+
 # -- A/B against another tree ----------------------------------------------
 def run_summary(text: str) -> dict:
     """Each kernel's ``ms`` and uncompacted ms, the one-shard ticks'
@@ -2759,6 +3238,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--lm-calibrate":
+        return lm_calibrate(int(sys.argv[2]))
     t_start = time.perf_counter()
     phase_env()
     checks = phase_kernel_checks()
@@ -2770,9 +3251,10 @@ def main() -> int:
     path_launches.update(evolve_spans)
     path_launches.update(phase_fleet())
     split = higgs_split()
+    island_launches = phase_islands(split)
     fit_launches, higgs_clf = phase_fit(gold, split)
     population_launches = {"predict": predict_launches["eval_population"], **fit_launches,
-                           "evolve": evolve_population}
+                           "evolve": evolve_population, "islands": island_launches}
     fit_parity_case = phase_fit_parity(split)
     population_launches["toolflow"], baselines = phase_toolflow(higgs_clf, split)
     entries = phase_timing(gold, checks, population_launches, serve_launches, path_launches,
@@ -2780,6 +3262,7 @@ def main() -> int:
     phase_sweep(gold)
     phase_profile(profile_case)
     phase_mlp_profile(baselines)
+    phase_lm()
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     check(all(v > 0 for v in population_launches.values()),

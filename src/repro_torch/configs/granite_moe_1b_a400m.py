@@ -1,0 +1,22 @@
+"""granite-moe-1b-a400m [hf:ibm-granite/granite-3.0-1b-a400m-base].
+
+24L d_model=1024 16H (GQA kv=8) d_ff=512 vocab=49155, MoE 32 experts top-8.
+"""
+from repro_torch.models.common import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    head_dim=64,
+    d_ff=512,
+    vocab=49155,
+    attn_kind="full",
+    rope_kind="rope",
+    act="swiglu",
+    moe=MoEConfig(n_experts=32, top_k=8, d_ff_expert=512),
+    tie_embeddings=True,
+    remat="full",
+)

@@ -1,0 +1,21 @@
+"""stablelm-12b [hf:stabilityai/stablelm-2-12b family].
+
+40L d_model=5120 32H (GQA kv=8) d_ff=13824 vocab=100352.
+"""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=160,
+    d_ff=13824,
+    vocab=100352,
+    attn_kind="full",
+    rope_kind="rope",
+    act="swiglu",
+    remat="full",
+    train_microbatches=2,
+)

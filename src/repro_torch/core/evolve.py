@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -105,18 +105,27 @@ class make_eval_fn:  # named as the reference's factory, which it replaces
     backend of the data's device (the kernels on the card, the plain
     versions on the CPU); naming one here is the only way to run the plain
     versions on the card.  ``clock`` books the search's phases; the loop
-    laps it too."""
+    laps it too.
+
+    ``reduce_counts`` sums host count tensors across the shards of a
+    sharded dataset (the island program's data ``all_reduce``, in
+    `core/islands.py`): it is applied to the class counts once here and to
+    ``correct`` after every readback, before the host fitness.  Counts are
+    linear in the words, so the sharded fitness is exactly the unsharded
+    one.  The default leaves the counts as they are."""
 
     def __init__(self, spec: CircuitSpec, data: PackedDataset,
                  mask_train: torch.Tensor, mask_val: torch.Tensor,
-                 backend: "str | runtime.EvalBackend | None" = None):
+                 backend: "str | runtime.EvalBackend | None" = None,
+                 reduce_counts: "Callable[[torch.Tensor], torch.Tensor] | None" = None):
         self.spec, self.data = spec, data
         self.backend = (runtime.backend_for(data.device) if backend is None
                         else runtime.resolve_backend(backend))
         self.clock = PhaseClock()
+        self._reduce = reduce_counts or (lambda counts: counts)
         self._masks = torch.stack([mask_train, mask_val])[:, None]  # (2, 1, W)
         self._count = F.class_counts(data, self._masks)              # (2, 1, C)
-        self._count_host = self._count.cpu().numpy()
+        self._count_host = self._reduce(self._count.cpu().clone()).numpy()
 
     def __call__(self, genomes: Genome, *, in_loop: bool = True
                  ) -> tuple[np.ndarray, np.ndarray]:
@@ -130,7 +139,7 @@ class make_eval_fn:  # named as the reference's factory, which it replaces
         clock.lap("launch")
         correct, _ = F.confusion_counts(out, data, self._masks, self._count)
         clock.lap("fitness_reduce")
-        correct = correct.cpu().numpy()                         # (2, λ, C)
+        correct = self._reduce(correct.cpu()).numpy()           # (2, λ, C)
         clock.lap("readback")
         fit = F.balanced_accuracy_from_counts(correct, self._count_host,
                                               in_loop=in_loop)  # (2, λ)

@@ -61,7 +61,14 @@ def test_port_has_modules():
                  "repro_torch.serve.fleet.workload", "repro_torch.serve.fleet.cadence",
                  "repro_torch.serve.fleet.transport", "repro_torch.serve.fleet.artifact",
                  "repro_torch.serve.fleet.host", "repro_torch.serve.fleet.router",
-                 "repro_torch.serve.observability.export"):
+                 "repro_torch.serve.observability.export",
+                 "repro_torch.core.islands", "repro_torch.launch.islands",
+                 "repro_torch.launch.serve", "repro_torch.models.common",
+                 "repro_torch.models.layers", "repro_torch.models.rope",
+                 "repro_torch.models.attention", "repro_torch.models.blocks",
+                 "repro_torch.models.lm", "repro_torch.models.convert",
+                 "repro_torch.configs", "repro_torch.configs.shapes",
+                 "repro_torch.configs.minitron_8b", "repro_torch.serve.engine"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 
