@@ -218,28 +218,44 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 phase 10 under `torch.profiler`: per step the stream's
                 period and the device's busy ms, and the device's idle
                 share of an unprofiled step.
- 12. lm       — the attention-only LM serving path (`CausalLM`, `Engine`),
-                plain PyTorch on the card (the reference runs it in `jnp`,
-                outside any Pallas kernel, so no kernel of the table runs
-                here and none is launched).  (a) minitron-8b at full width
-                and depth (32 layers, d = 4,096, vocab 256,000: 7.74 B
-                random bf16 parameters drawn on the card, every one of
-                them there): `Engine(batch_size=4, max_len=512)` serves 8
+ 12. lm       — the LM serving path (`CausalLM`, `Engine`) for every
+                block kind, plain PyTorch on the card (the reference runs
+                it in `jnp`, outside any Pallas kernel, so no kernel of the
+                table runs here and none is launched).  (a) minitron-8b at
+                full width and depth (32 layers, d = 4,096, vocab 256,000:
+                7.73 B random bf16 parameters drawn on the card, every one
+                of them there): `Engine(batch_size=4, max_len=512)` serves 8
                 requests of 256-token prompts and 32 new tokens, greedy;
                 its tokens must equal a hand-made prefill + decode argmax
-                chain at the same batch, and one request's decode logits
-                must agree with `forward` over its whole sequence: every
-                position's relative L2 gap within `LM_REL_L2_LIMIT`, and
-                the gap of a planted fault (RoPE one position on) past it
-                (a zeroed cached row is read too, not checked).  The line has prefill ms,
-                decode ms per token beside its bound (every weight but the
-                embedding table read once a step at 3.35 TB/s) and
-                tokens/s.  (b) starcoder2-7b at full width
-                with 4 of its 32 layers: a 4,608-token prompt through the
-                chunked prefill (4 calls), its ring wrapped past the 4,096
-                window, then 8 decoded tokens against `forward`.  (c) the
-                committed reference fixture (`lm_minitron_smoke.npz`) in
-                float32: the same greedy tokens, logits within 1e-5.
+                chain at the same batch.  Then, the served model freed,
+                the same draw in float32 (unrounded) decodes one request,
+                whose logits must agree with `forward` over its whole
+                sequence: every position's relative L2 gap within
+                `LM_REL_L2_LIMIT`, and the gap of each checked planted
+                fault past it (RoPE one position on, a zeroed cache row).  The
+                line has prefill ms, decode ms per token beside its bound
+                (every weight read once a step at 3.35 TB/s: `decode_bound`)
+                and tokens/s.  (b) starcoder2-7b at full width with 4 of
+                its 32 layers: a 4,608-token prompt through the chunked
+                prefill (4 calls), its ring wrapped past the 4,096 window,
+                then 8 decoded tokens (the check in float32, as in
+                (a)).  (c) the committed
+                reference fixtures (`lm_*_smoke.npz`: minitron; granite-moe
+                dropping pairs in decode; rwkv6 with a padded prompt; hymba
+                with its ring wrapped) in float32: the same greedy tokens,
+                logits within 1e-5.  (d) as (a), the expert and SSM archs:
+                granite-moe-1b-a400m (24 layers, 32 experts, top-8, 1.33 B
+                parameters), rwkv6-7b (32 layers, d = 4,096, 7.53 B) and
+                hymba-1.5b (32 layers, 3 global) at full size, arctic-480b
+                at full width with 1 of its 35 layers (128 experts, top-2
+                and the dense residual, 14.07 B).  The experts serve at the
+                production capacity factor 1.25 and the line reports the
+                pairs dropped by a prefill and by a decode step; their
+                decode check runs at a dropless E/k.  rwkv6's check
+                request has 251 tokens, no multiple of the wkv chunk;
+                hymba's has 1,280 tokens at max_len 1,344, past its
+                1,024-slot ring.  Each line has its peak memory and its
+                seconds.
 
 Launch counts are set to 0 just before each main-path phase (3, 4, 4b,
 4c, 4d, 4e, 4f, 5, 10 and 12: the fits, then each fitted classifier's predict
@@ -315,7 +331,9 @@ from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels.program import compile_program  # noqa: E402
 from repro_torch.launch.islands import launch_islands, spawn_ranks  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
-from repro_torch.models.convert import init_params, params_from_reference  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    init_params, param_dtype, param_shapes, params_from_reference)
 from repro_torch.models.lm import CausalLM  # noqa: E402
 from repro_torch.runtime import aot  # noqa: E402
 from repro_torch.serve.artifacts import ArtifactStore  # noqa: E402
@@ -440,24 +458,49 @@ ISLAND_TIMEOUT_S = 600.0
 # at batch 4 and max_len 512 serving 8 requests of 256-token prompts and
 # 32 new tokens, greedy; (b) starcoder2-7b at full width with 4 of its 32
 # layers, one 4,608-token prompt (a multiple of both chunk sizes, past the
-# 4,096 window) and 8 decoded tokens; (c) the committed reference fixture
-# in float32, within the CPU tests' tolerance
+# 4,096 window) and 8 decoded tokens; (c) the committed reference fixtures
+# in float32, within the CPU tests' tolerance; (d) the expert and SSM archs
+# served as (a): granite-moe-1b-a400m, rwkv6-7b and hymba-1.5b at full
+# size, arctic-480b at full width with 1 of its 35 layers (35 are 477 B
+# parameters, past one card's 80 GB)
 LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 256, 32, 512
 STARCODER_LAYERS, STARCODER_PROMPT, STARCODER_NEW = 4, 4608, 8
+LM_NEW_MODELS = ("granite-moe-1b-a400m", "arctic-480b", "rwkv6-7b", "hymba-1.5b")
+LM_LAYERS = {"starcoder2-7b": STARCODER_LAYERS, "arctic-480b": 1}   # depth cuts
+# the decode-against-forward request of each model: (prompt, new tokens,
+# max_len).  rwkv6's prompt is no multiple of the wkv chunk of 16 (the
+# padding path); hymba's wraps the 1,024-slot ring of its sliding layers
+# while its global layers keep every token
+LM_CHECK = {"minitron-8b": (LM_PROMPT, LM_NEW, LM_MAX_LEN),
+            "starcoder2-7b": (STARCODER_PROMPT, STARCODER_NEW, STARCODER_PROMPT + STARCODER_NEW),
+            "granite-moe-1b-a400m": (LM_PROMPT, LM_NEW, LM_MAX_LEN),
+            "arctic-480b": (LM_PROMPT, LM_NEW, LM_MAX_LEN),
+            "rwkv6-7b": (251, LM_NEW, LM_MAX_LEN),
+            "hymba-1.5b": (1280, LM_NEW, 1344)}
 LM_GOLDEN_TOL = 1e-5
-# decode against `forward` over the same sequence: at every position the
-# relative L2 gap of the logits, ||decode - forward|| / ||forward|| over the
-# vocabulary, stays within this limit, and each checked fault, planted in a
-# decode of the same tokens (`forced_decode`), goes past it.  Over 4 seeds
-# `python3 chip_smoke.py --lm-calibrate 4` read (H100 80GB HBM3, 700 W;
-# PERF.md §6) clean gaps of at most 0.01347 (minitron) and 0.00889
-# (starcoder2, 4 layers), RoPE one position on at least 0.0598 and 0.0977,
-# and a zeroed cache row at least 0.0213 and 0.00906; the limit is twice
-# the clean gap.  The zeroed row lies within 3x the clean gap, so it is
-# read but not checked: the f32 fixture and the CPU tests hold the cache
-LM_REL_L2_LIMIT = {"minitron-8b": 0.027, "starcoder2-7b": 0.018}
-LM_FAULTS = ("rope_position_plus_one", "cache_row_zeroed")
-LM_CHECKED_FAULTS = ("rope_position_plus_one",)
+# decode against `forward` over the same sequence, on float32 weights
+# (`decode_check`): at every position the relative L2 gap of the logits,
+# ||decode - forward|| / ||forward|| over the vocabulary, stays within this
+# limit, and each planted fault (`LM_FAULTS`, planted in a decode of the
+# same tokens by `forced_decode`) goes past it.  The limit is twice the
+# largest clean gap that `python3 chip_smoke.py --lm-calibrate 4` read over
+# 4 seeds (H100 80GB HBM3, 700 W; PERF.md §6): minitron 2.309e-6,
+# starcoder2 (4 layers) 3.560e-6, granite-moe 1.121e-6, arctic (1 layer)
+# 4.141e-6, rwkv6 1.472e-4 (float32 rounding through 32 layers of the
+# wkv recurrence: in float64 decode and forward agree to 1e-12,
+# `tests/test_torch_moe_ssm.py`), hymba 5.004e-6.  Every fault landed at
+# least 1,400x past its model's clean gap (a fault within 3x would be read,
+# not checked).  The expert archs are checked at a dropless capacity factor
+# E/k (at the production 1.25 a decode step drops pairs that `forward` keeps)
+LM_REL_L2_LIMIT = {"minitron-8b": 4.62e-6, "starcoder2-7b": 7.12e-6,
+                   "granite-moe-1b-a400m": 2.24e-6, "arctic-480b": 8.28e-6,
+                   "rwkv6-7b": 2.95e-4, "hymba-1.5b": 1.00e-5}
+LM_FAULTS = {arch: ("rope_position_plus_one", "cache_row_zeroed")
+             for arch in ("minitron-8b", "starcoder2-7b", "granite-moe-1b-a400m", "arctic-480b")}
+LM_FAULTS["rwkv6-7b"] = ("wkv_state_zeroed", "token_shift_zeroed")
+LM_FAULTS["hymba-1.5b"] = ("rope_position_plus_one", "mamba_state_zeroed", "cache_row_zeroed")
+# the decode step's recurrent state, read and written once (decode_bound)
+LM_STATE_KEYS = ("s", "last_x", "last_xc", "m_h", "m_conv")
 
 
 class SmokeFailure(RuntimeError):
@@ -2888,22 +2931,37 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return (got - want).norm(dim=-1) / want.norm(dim=-1)
 
 
+def plant(cache: dict, fault: str, prompt_len: int) -> None:
+    """A fault planted in a cache after the prefill: ``cache_row_zeroed``,
+    every layer's cached k and v of the prompt's last token (the ring's
+    slot on the hybrid's sliding layers); ``wkv_state_zeroed``, every
+    RWKV layer's wkv state; ``token_shift_zeroed``, both of RWKV's carried
+    tokens; ``mamba_state_zeroed``, every Mamba state ``m_h``."""
+    if fault == "cache_row_zeroed":
+        slot = (prompt_len - 1) % cache["k"].shape[2]
+        cache["k"][:, :, slot] = 0
+        cache["v"][:, :, slot] = 0
+    elif fault == "wkv_state_zeroed":
+        cache["s"].zero_()
+    elif fault == "token_shift_zeroed":
+        cache["last_x"].zero_()
+        cache["last_xc"].zero_()
+    elif fault == "mamba_state_zeroed":
+        cache["m_h"].zero_()
+
+
 def forced_decode(model, prompt: torch.Tensor, fed: torch.Tensor, max_len: int,
                   fault: str) -> torch.Tensor:
     """Prefill ``prompt``, then decode the tokens ``fed`` (1, n - 1) one by
     one with ``fault`` planted: the n steps' logits (n, V), the prefill's
     first.  ``rope_position_plus_one``: decode rotates q and k one
-    position too far; ``cache_row_zeroed``: after the prefill, every
-    layer's cached k and v of the prompt's last token are zeros."""
+    position too far; the others are planted in the cache (`plant`)."""
     if fault == "rope_position_plus_one":
         real = model._positions
         model._positions = lambda b, s, offset=0: real(b, s, offset + 1 if s == 1 else offset)
     try:
         logits, cache = model.prefill(tokens=prompt, max_len=max_len)
-        if fault == "cache_row_zeroed":
-            slot = (prompt.shape[1] - 1) % cache["k"].shape[2]
-            cache["k"][:, :, slot] = 0
-            cache["v"][:, :, slot] = 0
+        plant(cache, fault, prompt.shape[1])
         out = [logits[0]]
         for i in range(fed.shape[1]):
             logits, cache = model.decode_step(cache, token=fed[:, i:i + 1])
@@ -2943,9 +3001,10 @@ def against_forward(model, prompt: torch.Tensor, chain_tokens: np.ndarray, chain
     """One request's decode logits against `forward` over its whole
     sequence (prompt and the tokens fed back): the largest relative L2 gap
     of a position (`rel_l2`), and the same for a decode of those tokens
-    with each of `LM_FAULTS` planted.  The tokens must agree wherever
-    forward's top-2 margin exceeds twice the largest logit gap measured,
-    which no gap of that size can flip."""
+    with each of the model's `LM_FAULTS` planted.  The tokens must agree
+    wherever forward's top-2 margin exceeds twice the largest logit gap
+    measured, which no gap of that size can flip."""
+    name = model.cfg.name
     n = len(chain_logits)
     fed = torch.as_tensor(chain_tokens[:1, :n - 1], device=DEVICE)
     full, _, _ = model.forward(tokens=torch.cat([prompt, fed], dim=1))
@@ -2955,25 +3014,103 @@ def against_forward(model, prompt: torch.Tensor, chain_tokens: np.ndarray, chain
     top2 = torch.topk(want.float(), 2, dim=-1).values
     sure = ((top2[:, 0] - top2[:, 1]) > 2 * err).cpu().numpy()
     agree = torch.argmax(want.float(), -1).cpu().numpy() == chain_tokens[0, :n]
-    faults = {f: float(rel_l2(forced_decode(model, prompt, fed, max_len, f), want).max())
-              for f in LM_FAULTS}
-    return {"positions": n, "max_rel_l2": float(rel_l2(got, want).max()),
-            "limit": LM_REL_L2_LIMIT.get(model.cfg.name), "faults_max_rel_l2": faults,
+    gaps = rel_l2(got, want)
+    faults = {f: rel_l2(forced_decode(model, prompt, fed, max_len, f), want)
+              for f in LM_FAULTS[name]}
+    return {"prompt": prompt.shape[1], "positions": n, "max_rel_l2": float(gaps.max()),
+            "limit": LM_REL_L2_LIMIT.get(name),
+            "faults_max_rel_l2": {f: float(g.max()) for f, g in faults.items()},
+            "checked_faults": list(LM_FAULTS[name]),
             "max_abs_err": err, "max_abs_logit": float(want.float().abs().max()),
             "tokens_agree": int(agree.sum()), "tokens_sure": int(sure.sum()),
             "sure_tokens_disagree": int((~agree & sure).sum())}
 
 
 def check_decode(name: str, r: dict) -> None:
-    """`against_forward`'s reading within its limit, and every checked
+    """`against_forward`'s largest gap within its limit, and every checked
     fault past it."""
-    check(r["max_rel_l2"] <= r["limit"], f"{name}: decode differs from forward by a "
-                                         f"relative L2 of {r['max_rel_l2']} > {r['limit']}")
-    for fault in LM_CHECKED_FAULTS:
+    check(r["limit"] is not None, f"{name}: no decode limit is set")
+    check(r["max_rel_l2"] <= r["limit"],
+          f"{name}: decode differs from forward by a relative L2 of "
+          f"{r['max_rel_l2']} > {r['limit']}")
+    for fault in r["checked_faults"]:
         gap = r["faults_max_rel_l2"][fault]
         check(gap > r["limit"], f"{name}: the planted fault {fault} moves decode by "
                                 f"{gap}, within the limit {r['limit']}")
     check(r["sure_tokens_disagree"] == 0, f"{name}: a sure greedy token differs")
+
+
+def decode_check(cfg, seed: int) -> dict:
+    """`against_forward` on the model's check request (`LM_CHECK`), its
+    prompt drawn from ``seed`` as the smoke run draws it, on a float32
+    model drawn from ``seed`` (the served bf16 draw before its rounding),
+    the expert archs at a dropless capacity factor E/k.  The caller frees
+    the served model first: arctic's 56 GB of float32 do not fit beside
+    its 28 GB of bf16."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    n_prompt, n_new, max_len = LM_CHECK[cfg.name]
+    torch.cuda.reset_peak_memory_stats()
+    model = CausalLM(cfg, init_params(torch.Generator(device=DEVICE).manual_seed(seed),
+                                      cfg, DEVICE), device=DEVICE)
+    prompt = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, cfg.vocab, (1, n_prompt)).astype(np.int32), device=DEVICE)
+    toks, logits, _, _ = greedy_chain(model, prompt, n_new, max_len)
+    out = {"dtype": cfg.dtype, **against_forward(model, prompt, toks, logits, max_len),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.moe is not None:
+        out["capacity_factor"] = cfg.moe.capacity_factor
+    return out
+
+
+class RouteReadings:
+    """Within the block, every `moe.route` call's dropped pairs, pairs and
+    distinct experts, read on the host (so kept out of timed work)."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        self.real = lm_moe.route
+
+        def reading(*args):
+            plan = self.real(*args)
+            self.calls.append({"dropped": int((~plan.kept).sum()), "pairs": plan.flat_e.numel(),
+                               "capacity": plan.cap,
+                               "experts_routed": int(plan.flat_e.unique().numel())})
+            return plan
+
+        lm_moe.route = reading
+        return self
+
+    def __exit__(self, *exc):
+        lm_moe.route = self.real
+
+    def summary(self) -> dict:
+        return {"dropped": sum(c["dropped"] for c in self.calls),
+                "pairs": sum(c["pairs"] for c in self.calls),
+                "capacity": self.calls[0]["capacity"] if self.calls else None}
+
+
+def decode_bound(model, cache: dict, batch: int, routes: "RouteReadings") -> float:
+    """The least ms of one decode step at 3.35 TB/s: every weight read
+    once (the embedding table only for the batch's rows unless it is also
+    the head; of the experts, only those the step's tokens routed to, per
+    layer), and the recurrent state read and written.  Attention caches
+    are not counted."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not model.cfg.tie_embeddings:
+        row = model.cfg.d_model * model.embed.element_size()
+        weights += batch * row - model.embed.numel() * model.embed.element_size()
+    if model.cfg.moe is not None:
+        expert = sum(model.blocks[k][0, 0].numel() * model.blocks[k].element_size()
+                     for k in ("e_wg", "e_wu", "e_wd"))
+        weights -= sum(model.cfg.moe.n_experts - c["experts_routed"]
+                       for c in routes.calls) * expert
+    state = sum(cache[k].numel() * cache[k].element_size() for k in LM_STATE_KEYS if k in cache)
+    return (weights + 2 * state) / HBM_BYTES_PER_S * 1e3
 
 
 def decode_profile(model, cache: dict, token: torch.Tensor) -> dict:
@@ -2994,18 +3131,27 @@ def decode_profile(model, cache: dict, token: torch.Tensor) -> dict:
             "idle_share": None if not device else 1 - busy_ms / wall_ms}
 
 
-def lm_minitron() -> dict:
-    """(a): minitron-8b at full width and depth, random bf16 weights."""
-    cfg = get_config("minitron-8b")
+def lm_model(arch: str) -> dict:
+    """(a) and (d): one model at full width (depth cut by `LM_LAYERS`),
+    random bf16 weights drawn on the card from `SEED`, served by the
+    engine and held to a hand-made chain and to `forward`."""
+    t_entry = time.perf_counter()
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=LM_LAYERS.get(arch, cfg.n_layers))
     torch.cuda.reset_peak_memory_stats()
     params, init_ms = synced(lambda: init_params(
         torch.Generator(device=DEVICE).manual_seed(SEED), cfg, DEVICE))
     model = CausalLM(cfg, params, device=DEVICE)   # shares the tensors of params
     n = sum(p.numel() for p in model.parameters())
+    n_shapes = sum(int(np.prod(shape)) for shape in
+                   [*(v for k, v in param_shapes(cfg).items() if k != "blocks"),
+                    *param_shapes(cfg)["blocks"].values()])
     on_card = all(p.device.type == "cuda" for p in model.parameters())
-    rng = np.random.RandomState(SEED)
-    prompts = rng.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
-    greedy_chain(model, torch.as_tensor(prompts[:1, :8], device=DEVICE), 2, 16)  # warm-up
+    dtypes_ok = all(v.dtype == param_dtype(cfg, k) for k, v in model.blocks.items())
+    prompts = list(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32))
+    n_check = LM_CHECK[arch][0]
+    greedy_chain(model, torch.as_tensor(prompts[0][None, :8], device=DEVICE), 2, 16)  # warm-up
     engine = lm_engine.Engine(cfg, params, batch_size=LM_BATCH, max_len=LM_MAX_LEN, seed=SEED)
     del params
     reqs = [lm_engine.Request(uid=i, prompt=p, max_new_tokens=LM_NEW)
@@ -3013,32 +3159,33 @@ def lm_minitron() -> dict:
     report = lm_engine.throughput_report(engine, reqs)
     chains, prefill_ms, decode_ms = [], [], []
     for b in range(0, LM_REQUESTS, LM_BATCH):
-        toks, _, pms, dms = greedy_chain(model, torch.as_tensor(prompts[b:b + LM_BATCH],
-                                                                device=DEVICE),
-                                         LM_NEW, LM_MAX_LEN)
+        toks, _, pms, dms = greedy_chain(
+            model, torch.as_tensor(np.stack(prompts[b:b + LM_BATCH]), device=DEVICE),
+            LM_NEW, LM_MAX_LEN)
         chains.append(toks)
         prefill_ms.append(pms)
         decode_ms.extend(dms)
     chain = np.concatenate(chains)
     engine_mismatches = int((np.asarray([r.output for r in reqs]) != chain).sum())
-    one_tokens, one_logits, _, _ = greedy_chain(
-        model, torch.as_tensor(prompts[:1], device=DEVICE), LM_NEW, LM_MAX_LEN)
-    _, cache = model.prefill(tokens=torch.as_tensor(prompts[:LM_BATCH], device=DEVICE),
-                             max_len=LM_MAX_LEN)
-    profiled = decode_profile(model, cache, torch.as_tensor(chain[:LM_BATCH, :1], device=DEVICE))
-    del cache
-    vs_forward = against_forward(model, torch.as_tensor(prompts[:1], device=DEVICE),
-                                 one_tokens, one_logits, LM_MAX_LEN)
+    first = torch.as_tensor(np.stack(prompts[:LM_BATCH]), device=DEVICE)
+    with RouteReadings() as prefill_routes:
+        _, cache = model.prefill(tokens=first, max_len=LM_MAX_LEN)
+    with RouteReadings() as step_routes:
+        model.decode_step(cache, token=torch.as_tensor(chain[:LM_BATCH, :1], device=DEVICE))
+    bound_ms = decode_bound(model, cache, LM_BATCH, step_routes)
+    profiled = decode_profile(model, cache, torch.as_tensor(chain[:LM_BATCH, 1:2], device=DEVICE))
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    # a step reads every weight but the embedding table, of which it
-    # gathers one row per sequence of the batch
-    step_bytes = (weight_bytes - model.embed.numel() * model.embed.element_size()
-                  + LM_BATCH * cfg.d_model * model.embed.element_size())
-    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab, "dtype": cfg.dtype, "parameters": n,
+    peak = torch.cuda.max_memory_allocated()
+    ring_slots = model.cache_len(LM_CHECK[arch][2])
+    del cache, model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    vs_forward = decode_check(cfg, SEED)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype, "parameters": n,
            "n_params_formula": cfg.n_params(), "weight_bytes": weight_bytes,
-           "all_on_card": on_card, "init_ms": init_ms,
-           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "all_on_card": on_card, "f32_leaves_in_f32": dtypes_ok, "init_ms": init_ms,
+           "peak_memory_bytes": peak, "peak_mem_gb": peak / 1e9,
            "requests": LM_REQUESTS, "batch": LM_BATCH, "prompt": LM_PROMPT,
            "new_tokens": LM_NEW, "max_len": LM_MAX_LEN, "engine": report,
            "engine_vs_chain_mismatches": engine_mismatches,
@@ -3046,24 +3193,46 @@ def lm_minitron() -> dict:
                LM_BATCH * LM_PROMPT / (ms / 1e3) for ms in prefill_ms],
            "decode_ms_per_token_median": statistics.median(decode_ms),
            "decode_ms_per_token_min": min(decode_ms),
-           "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
-           "decode_bound_by": "bytes: every weight but the embedding table read once per "
-                              "step, and the batch's embedding rows, at 3.35 TB/s",
-           "decode_profile": profiled, "decode_vs_forward": vs_forward}
-    del model, engine
-    check(on_card, "minitron-8b: a parameter is not on the card")
-    check(n == cfg.n_params() - cfg.d_model,
-          f"minitron-8b: {n} parameters; the formula says {cfg.n_params()} (+ d for ln_f)")
-    check(engine_mismatches == 0, f"minitron-8b: the engine's tokens differ from the hand-made "
+           "decode_bound_ms": bound_ms,
+           "decode_bound_by": "bytes: every weight read once per step (the embedding table "
+                              "only for the batch's rows unless tied to the head; only the "
+                              "experts the step routed to), the recurrent state read and "
+                              "written, at 3.35 TB/s; attention caches not counted",
+           "decode_profile": profiled, "decode_vs_forward": vs_forward,
+           "launches": launch_counts()}
+    if cfg.moe is not None:
+        out["capacity_factor"] = cfg.moe.capacity_factor
+        out["dropped_pairs"] = {"prefill": prefill_routes.summary(),
+                                "decode_step": step_routes.summary()}
+        out["experts_routed_per_layer_decode_step"] = [c["experts_routed"]
+                                                       for c in step_routes.calls]
+    if cfg.block_kind == "rwkv":
+        out["odd_prompt"] = {"tokens": n_check, "chunk": 16, "padded_to": -(-n_check // 16) * 16}
+    if cfg.block_kind == "hybrid":
+        max_len = LM_CHECK[arch][2]
+        out["ring"] = {"prompt": n_check, "max_len": max_len, "ring_slots": ring_slots,
+                       "global_slots": max_len, "global_layers": list(cfg.global_layers)}
+        out["ring_wrapped"] = n_check >= ring_slots
+    out["phase_s"] = time.perf_counter() - t_entry
+    check(on_card, f"{arch}: a parameter is not on the card")
+    check(dtypes_ok, f"{arch}: a leaf is not in the reference's dtype")
+    check(n == n_shapes, f"{arch}: {n} parameters; its shapes say {n_shapes}")
+    if cfg.block_kind == "attn" and cfg.moe is None:
+        check(n == cfg.n_params() - cfg.d_model,
+              f"{arch}: {n} parameters; the formula says {cfg.n_params()} (+ d for ln_f)")
+    check(engine_mismatches == 0, f"{arch}: the engine's tokens differ from the hand-made "
                                   f"chain in {engine_mismatches} places")
-    check_decode("minitron-8b", vs_forward)
+    check(not any(out["launches"].values()), f"{arch}: the LM path launched a circuit kernel")
+    if cfg.block_kind == "hybrid":
+        check(out["ring_wrapped"], f"{arch}: the check request did not wrap the ring")
+    check_decode(arch, vs_forward)
     return out
 
 
 def lm_starcoder2() -> dict:
     """(b): starcoder2-7b at full width, 4 of its 32 layers: a 4,608-token
     prompt through the chunked path, the ring wrapped past the 4,096
-    window, then 8 decoded tokens against `forward`."""
+    window, then 8 decoded tokens; then `decode_check` in float32."""
     cfg = dataclasses.replace(get_config("starcoder2-7b"), n_layers=STARCODER_LAYERS)
     model = CausalLM(cfg, init_params(torch.Generator(device=DEVICE).manual_seed(SEED + 1),
                                       cfg, DEVICE), device=DEVICE)
@@ -3078,57 +3247,72 @@ def lm_starcoder2() -> dict:
 
     lm_attention.gqa_attention_chunked = counting
     try:
-        toks, logits, prefill_ms, decode_ms = greedy_chain(
+        _, _, prefill_ms, decode_ms = greedy_chain(
             model, prompt, STARCODER_NEW, STARCODER_PROMPT + STARCODER_NEW)
     finally:
         lm_attention.gqa_attention_chunked = real
-    vs_forward = against_forward(model, prompt, toks, logits, STARCODER_PROMPT + STARCODER_NEW)
     ring = model.cache_len(STARCODER_PROMPT + STARCODER_NEW)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    vs_forward = decode_check(cfg, SEED + 1)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(cfg.name).n_layers,
            "d_model": cfg.d_model, "window": cfg.window, "prompt": STARCODER_PROMPT,
            "ring_slots": ring, "ring_wrapped": STARCODER_PROMPT >= ring,
            "chunked_prefill_calls": len(chunked), "prefill_ms": prefill_ms,
            "decode_ms": decode_ms, "decode_vs_forward": vs_forward}
-    del model
     check(len(chunked) == cfg.n_layers and STARCODER_PROMPT > ring,
           f"starcoder2: the prefill took the chunked path {len(chunked)} times "
           f"(ring of {ring} slots)")
-    check_decode("starcoder2", vs_forward)
+    check_decode("starcoder2-7b", vs_forward)
     return out
 
 
 def lm_golden() -> dict:
-    """(c): the reference's minitron smoke fixture in float32 on the card."""
-    arrays = np.load(make_lm_golden.PATH)
-    cfg = get_config(make_lm_golden.ARCH).smoke()
-    model = CausalLM(cfg, params_from_reference(make_lm_golden.param_tree(arrays), cfg, DEVICE),
-                     device=DEVICE)
-    want = arrays["tokens"]
-    toks, logits, _, _ = greedy_chain(model, torch.as_tensor(arrays["prompt"], device=DEVICE),
-                                      want.shape[1], arrays["prompt"].shape[1] + want.shape[1])
-    want_logits = np.concatenate([arrays["prefill_logits"][:, None],
-                                  arrays["decode_logits"][:, :want.shape[1] - 1]], axis=1)
-    got_logits = torch.stack(logits, dim=1).cpu().numpy()
-    err = float(np.abs(got_logits - want_logits).max())
-    out = {"arch": cfg.name, "dtype": cfg.dtype, "token_mismatches": int((toks != want).sum()),
-           "max_abs_err": err, "tolerance": LM_GOLDEN_TOL}
-    check(out["token_mismatches"] == 0, "the LM fixture's greedy tokens differ on the card")
-    check(err <= LM_GOLDEN_TOL, f"the LM fixture's logits differ by {err} on the card")
+    """(c): each reference smoke fixture in float32 on the card."""
+    out = {}
+    for fx in make_lm_golden.FIXTURES:
+        arrays = np.load(fx.path)
+        cfg = fx.config(get_config)
+        model = CausalLM(cfg, params_from_reference(make_lm_golden.param_tree(arrays), cfg,
+                                                    DEVICE), device=DEVICE)
+        want = arrays["tokens"]
+        toks, logits, _, _ = greedy_chain(model, torch.as_tensor(arrays["prompt"], device=DEVICE),
+                                          want.shape[1], arrays["prompt"].shape[1] + want.shape[1])
+        want_logits = np.concatenate([arrays["prefill_logits"][:, None],
+                                      arrays["decode_logits"][:, :want.shape[1] - 1]], axis=1)
+        got_logits = torch.stack(logits, dim=1).cpu().numpy()
+        err = float(np.abs(got_logits - want_logits).max())
+        out[fx.name] = {"arch": cfg.name, "dtype": cfg.dtype, "prompt": fx.prompt,
+                        "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
+                        "token_mismatches": int((toks != want).sum()), "max_abs_err": err,
+                        "tolerance": LM_GOLDEN_TOL}
+        check(out[fx.name]["token_mismatches"] == 0,
+              f"the {fx.name} LM fixture's greedy tokens differ on the card")
+        check(err <= LM_GOLDEN_TOL,
+              f"the {fx.name} LM fixture's logits differ by {err} on the card")
+    return out
+
+
+def released(fn):
+    """``fn()``, then the card's memory handed back for the next model."""
+    out = fn()
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
 def phase_lm() -> dict:
-    """The attention-only LM serving path on the card (phase 12 of the
-    module doc).  No kernel of the table runs on it."""
+    """The LM serving path on the card (phase 12 of the module doc).  No
+    kernel of the table runs on it."""
     t_phase = time.perf_counter()
     circuit_eval.reset_launch_counts()
-    out = {"phase": "lm", "card": gpu_line(), "minitron_8b": lm_minitron()}
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["starcoder2_7b"] = lm_starcoder2()
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["golden"] = lm_golden()
+    out = {"phase": "lm", "card": gpu_line(),
+           "minitron_8b": released(lambda: lm_model("minitron-8b"))}
+    out["starcoder2_7b"] = released(lm_starcoder2)
+    out["golden"] = released(lm_golden)
+    for arch in LM_NEW_MODELS:
+        out[arch.replace("-", "_").replace(".", "_")] = released(lambda: lm_model(arch))
     out["launches"] = launch_counts()
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
@@ -3139,35 +3323,25 @@ def phase_lm() -> dict:
 
 def lm_calibrate(seeds: int) -> int:
     """``--lm-calibrate N``: the readings that `LM_REL_L2_LIMIT` is set
-    from.  For each of the phase's two models (minitron-8b at full size,
-    starcoder2-7b at 4 layers, the same prompt lengths and decode
-    lengths) and each of N seeds of weights and prompt: `against_forward`'s
-    clean gap and each planted fault's.  One line per run, then one with
-    the largest clean gap and each fault's smallest gap per model."""
+    from.  For each of the phase's models (at its depth, with its check
+    request, `LM_CHECK`) and each of N seeds of weights and prompt:
+    `decode_check`'s clean gap and each planted fault's.  One line per
+    run, then one with the largest clean gap and each fault's smallest gap
+    per model."""
     runs, summary = [], {}
-    cases = (("minitron-8b", None, LM_PROMPT, LM_NEW, LM_MAX_LEN),
-             ("starcoder2-7b", STARCODER_LAYERS, STARCODER_PROMPT, STARCODER_NEW,
-              STARCODER_PROMPT + STARCODER_NEW))
-    for arch, layers, n_prompt, n_new, max_len in cases:
+    for arch in ("minitron-8b", "starcoder2-7b", *LM_NEW_MODELS):
         cfg = get_config(arch)
-        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+        cfg = dataclasses.replace(cfg, n_layers=LM_LAYERS.get(arch, cfg.n_layers))
         for seed in range(seeds):
-            model = CausalLM(cfg, init_params(torch.Generator(device=DEVICE).manual_seed(seed),
-                                              cfg, DEVICE), device=DEVICE)
-            prompt = torch.as_tensor(np.random.RandomState(seed).randint(
-                0, cfg.vocab, (1, n_prompt)).astype(np.int32), device=DEVICE)
-            toks, logits, _, _ = greedy_chain(model, prompt, n_new, max_len)
-            run = {"arch": arch, "layers": cfg.n_layers, "seed": seed,
-                   **against_forward(model, prompt, toks, logits, max_len)}
+            run = {"arch": arch, "layers": cfg.n_layers, "seed": seed, **decode_check(cfg, seed)}
             emit(run)
             runs.append(run)
-            del model, logits
             gc.collect()
             torch.cuda.empty_cache()
         mine = [r for r in runs if r["arch"] == arch]
         summary[arch] = {"clean_max": max(r["max_rel_l2"] for r in mine),
                          **{f + "_min": min(r["faults_max_rel_l2"][f] for r in mine)
-                            for f in LM_FAULTS}}
+                            for f in LM_FAULTS[arch]}}
     emit({"phase": "lm_calibrate", "card": gpu_line(), "seeds": seeds, "summary": summary})
     return 0
 

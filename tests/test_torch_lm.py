@@ -1,16 +1,20 @@
-"""The port's attention-only LM serving path against the reference.
+"""The port's LM serving path against the reference.
 
-Every attention-only arch (no experts, no SSM blocks) at ``smoke()`` size
-in float32, with the reference's ``lm.init_params(jax.random.key(0),
-cfg)`` carried across by `params_from_reference`; inputs are seeded numpy
-arrays fed to both packages.
+All ten archs (attention, experts, RWKV6 and the attention + Mamba
+hybrid) at ``smoke()`` size in float32, with the reference's
+``lm.init_params(jax.random.key(0), cfg)`` carried across by
+`params_from_reference`; inputs are seeded numpy arrays fed to both
+packages.  The experts' smoke configs are dropless (capacity E/k), so
+decode agrees with `forward`; `tests/test_torch_moe_ssm.py` forces drops,
+and the granite-moe fixture drops pairs in decode.
 
-Tolerance: ``TOL = 1e-5`` absolute on logits, caches and attention
-outputs.  Both packages compute the same float32 operations in the same
-order of layers; their reductions (matrix products, the RMSNorm mean,
-the softmax sums) group terms differently, which moves results by a few
-ulps (measured: at most 2.1e-6 on these shapes).  The reference's own
-decode-against-forward bound is 5e-4 (`tests/test_models_smoke.py`).
+Tolerance: ``TOL = 1e-5`` absolute on logits, caches, aux losses and
+attention outputs.  Both packages compute the same float32 operations in
+the same order of layers; their reductions (matrix products, the RMSNorm
+mean, the softmax sums, the wkv einsums) group terms differently, which
+moves results by a few ulps (measured: at most 5.5e-6 on these shapes,
+the RWKV state).  The reference's own decode-against-forward bound is
+5e-4 (`tests/test_models_smoke.py`).
 """
 import dataclasses
 import os
@@ -30,9 +34,12 @@ from repro.serve.engine import Engine as RefEngine
 from repro.serve.engine import Request as RefRequest
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import NoCudaDeviceError
+from repro_torch.launch import serve
 from repro_torch.models import attention as A
 from repro_torch.models import rope as R
-from repro_torch.models.convert import init_params, param_shapes, params_from_reference
+from repro_torch.models import moe
+from repro_torch.models.convert import (init_params, param_dtype, param_shapes,
+                                        params_from_reference)
 from repro_torch.models.lm import CausalLM
 from repro_torch.serve.engine import Engine, Request
 
@@ -40,9 +47,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tor
 import make_lm_golden  # noqa: E402
 
 TOL = 1e-5
-ATTN_ARCHS = [a for a in ARCH_IDS
-              if get_config(a).block_kind == "attn" and get_config(a).moe is None]
 B, S = 2, 24
+FIXTURES = {fx.name: fx for fx in make_lm_golden.FIXTURES}
 
 
 def _trees(arch):
@@ -75,40 +81,53 @@ def _close(port: torch.Tensor, ref) -> float:
     return err
 
 
-def test_the_six_attention_archs_are_covered():
-    assert ATTN_ARCHS == ["stablelm-12b", "llama3-405b", "starcoder2-7b", "minitron-8b",
-                          "musicgen-medium", "qwen2-vl-7b"]
+def _close_caches(cache: dict, r_cache: dict) -> None:
+    """Every tensor of the cache (k/v, the hybrid's global gk/gv and Mamba
+    m_h/m_conv, RWKV's s/last_x/last_xc) equal to the reference's, and the
+    position."""
+    assert sorted(cache) == sorted(r_cache)
+    assert cache["pos"] == int(r_cache["pos"])
+    for name, want in r_cache.items():
+        if name != "pos":
+            assert tuple(cache[name].shape) == want.shape, name
+            _close(cache[name], want)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_all_ten_archs_are_covered():
+    assert ARCH_IDS == ("granite-moe-1b-a400m", "arctic-480b", "stablelm-12b", "llama3-405b",
+                        "starcoder2-7b", "minitron-8b", "musicgen-medium", "qwen2-vl-7b",
+                        "rwkv6-7b", "hymba-1.5b")
+    kinds = {(get_config(a).block_kind, get_config(a).moe is not None) for a in ARCH_IDS}
+    assert kinds == {("attn", False), ("attn", True), ("rwkv", False), ("hybrid", False)}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_prefill_and_decode_match_the_reference(arch):
-    """forward logits, prefill logits and cache, and each decode step's
-    logits and cache (starcoder2's smoke window of 16 makes its 21-token
-    prefill wrap the ring)."""
+    """forward logits and aux loss, prefill logits and cache, and each
+    decode step's logits and cache (the smoke window of 16 makes the
+    21-token prefill wrap starcoder2's and hymba's rings; rwkv6's 21 tokens
+    pad to 32)."""
     rcfg, rparams, cfg, model = _models(arch)
     key, full = _inputs(cfg)
-    r_logits, _, _ = RLM.forward(rparams, rcfg, **{key: jnp.asarray(full)})
+    r_logits, r_aux, _ = RLM.forward(rparams, rcfg, **{key: jnp.asarray(full)})
     logits, aux, _ = model.forward(**{key: torch.from_numpy(full)})
-    assert logits.shape == (B, S, cfg.vocab) and float(aux) == 0.0
+    assert logits.shape == (B, S, cfg.vocab)
+    assert abs(float(aux) - float(r_aux)) <= TOL and (float(aux) > 0) == (cfg.moe is not None)
     _close(logits, r_logits)
 
     p = S - 3
     r_last, r_cache = RLM.prefill(rparams, rcfg, max_len=S, **{key: jnp.asarray(full[:, :p])})
     last, cache = model.prefill(**{key: torch.from_numpy(full[:, :p])}, max_len=S)
     _close(last, r_last)
-    assert cache["pos"] == int(r_cache["pos"]) == p
-    assert cache["k"].shape == r_cache["k"].shape
-    _close(cache["k"], r_cache["k"])
-    _close(cache["v"], r_cache["v"])
+    assert cache["pos"] == p
+    _close_caches(cache, r_cache)
     dec = "embed" if cfg.frontend is not None else "token"
     for t in range(p, S):
         r_lg, r_cache = RLM.decode_step(rparams, rcfg, r_cache, **{dec: jnp.asarray(full[:, t:t + 1])})
         lg, cache = model.decode_step(cache, **{dec: torch.from_numpy(full[:, t:t + 1])})
         _close(lg, r_lg)
         _close(lg, r_logits[:, t])  # and the sequence forward
-        _close(cache["k"], r_cache["k"])
-        _close(cache["v"], r_cache["v"])
-        assert cache["pos"] == int(r_cache["pos"])
+        _close_caches(cache, r_cache)
 
 
 def test_mrope_positions_match_the_reference():
@@ -211,7 +230,7 @@ def _requests(cls, vocab, n=5, new=6, temperature=0.0):
                 max_new_tokens=new, temperature=temperature) for i in range(n)]
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_engine_greedy_tokens_equal_the_references(arch):
     """Batches of 3 with prompts of 5-10 tokens (the remainder replayed
     through decode).  Every step's top-2 logit margin in the reference is
@@ -266,10 +285,11 @@ def test_temperature_zero_is_greedy_and_a_seeded_temperature_run_reproduces():
     assert all(0 <= t < cfg.vocab for r in runs[1] for t in r.output)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_parameter_count_equals_the_references_and_the_formula(arch):
     """The port's tree has the reference's leaves and shapes; ``n_params()``
-    is within the reference test's 3 % of the count."""
+    is within the reference test's 3 % of the count; the formulas equal the
+    reference's at smoke and full size."""
     rcfg, rparams, cfg, model = _models(arch)
     ref_count = sum(x.size for x in jax.tree.leaves(rparams))
     count = sum(p.numel() for p in model.parameters())
@@ -279,7 +299,34 @@ def test_parameter_count_equals_the_references_and_the_formula(arch):
     assert cfg.n_params() == rcfg.n_params() and cfg.active_params() == rcfg.active_params()
     full, ref_full = get_config(arch), ref_get_config(arch)
     assert full.n_params() == ref_full.n_params()
+    assert full.active_params() == ref_full.active_params()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_bf16_trees_keep_the_references_dtypes(arch):
+    """In bfloat16 the reference keeps the router, the RWKV decay and
+    bonus leaves and the Mamba A and dt bias in float32: a random start
+    has the reference's dtype at every leaf, `params_from_reference`
+    carries the reference's bf16 tree, and refuses a leaf of another
+    dtype."""
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="bfloat16")
+    rcfg = dataclasses.replace(ref_get_config(arch).smoke(), dtype="bfloat16")
+    rtree = jax.tree.map(np.asarray, RLM.init_params(jax.random.key(0), rcfg))
+    mine = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    for name, leaf in rtree["blocks"].items():
+        assert mine["blocks"][name].dtype == param_dtype(cfg, name), name
+        assert str(mine["blocks"][name].dtype).removeprefix("torch.") == leaf.dtype.name, name
+    carried = params_from_reference(rtree, cfg, "cpu")
+    assert carried["blocks"]["ln1"].dtype == torch.bfloat16
+    f32 = [n for n in rtree["blocks"] if param_dtype(cfg, n) == torch.float32]
+    assert bool(f32) == (arch in ("granite-moe-1b-a400m", "arctic-480b", "rwkv6-7b",
+                                  "hymba-1.5b"))
+    if f32:
+        leaf = rtree["blocks"][f32[0]].astype(rtree["blocks"]["ln1"].dtype)
+        bad = {**rtree, "blocks": {**rtree["blocks"], f32[0]: leaf}}
+        with pytest.raises(ValueError, match=f32[0]):
+            params_from_reference(bad, cfg, "cpu")
 
 
 def test_a_random_start_has_the_references_layout():
@@ -296,8 +343,6 @@ def test_a_random_start_has_the_references_layout():
 
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from repro_torch.launch import serve
-
     cfg = get_config("minitron-8b").smoke()
     params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     with pytest.raises(NoCudaDeviceError):
@@ -315,39 +360,52 @@ def test_entry_points_default_to_the_card(monkeypatch):
                        "--requests", "3", "--new-tokens", "2"]) == 0
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "arctic-480b", "hymba-1.5b",
-                                  "rwkv6-7b"])
-def test_experts_and_ssm_blocks_are_not_ported_yet(arch):
-    cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_the_serve_launcher_runs_every_arch_on_the_cpu(arch, capsys):
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+                       "--new-tokens", "2"]) == 0
+    assert "'device': 'cpu'" in capsys.readouterr().out
 
 
-# -- the committed fixture -----------------------------------------------------
+# -- the committed fixtures ----------------------------------------------------
 
-@pytest.fixture(scope="module")
-def golden():
-    return dict(np.load(make_lm_golden.PATH))
-
-
-def test_the_fixture_is_what_its_script_writes(golden):
-    built = make_lm_golden.build()
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_the_fixture_is_what_its_script_writes(name):
+    fx = FIXTURES[name]
+    golden = dict(np.load(fx.path))
+    built = make_lm_golden.build(fx)
     assert sorted(built) == sorted(golden)
     for k, v in built.items():
         if k.startswith("param/") or k in ("prompt", "tokens"):
             np.testing.assert_array_equal(v, golden[k], err_msg=k)
         else:
             np.testing.assert_allclose(v, golden[k], rtol=0, atol=1e-6, err_msg=k)
-    assert os.path.getsize(make_lm_golden.PATH) < 1 << 20
+    assert os.path.getsize(fx.path) < 1 << 20
 
 
-def test_the_port_reproduces_the_fixture(golden):
-    cfg = get_config(make_lm_golden.ARCH).smoke()
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_the_port_reproduces_the_fixture(name, monkeypatch):
+    """Greedy tokens equal, logits within TOL; granite-moe's decode steps
+    drop pairs (one slot per expert), rwkv6's prompt pads, hymba's ring
+    wraps."""
+    fx = FIXTURES[name]
+    golden = dict(np.load(fx.path))
+    cfg = fx.config(get_config)
     model = CausalLM(cfg, params_from_reference(make_lm_golden.param_tree(golden), cfg, "cpu"),
                      device="cpu")
+    dropped = []
+    real = moe.route
+
+    def counting(*args):
+        plan = real(*args)
+        dropped.append(int((~plan.kept).sum()))
+        return plan
+
+    monkeypatch.setattr(moe, "route", counting)
     prompt = torch.from_numpy(golden["prompt"])
     logits, cache = model.prefill(tokens=prompt, max_len=prompt.shape[1] + make_lm_golden.NEW)
     _close(logits, golden["prefill_logits"])
+    n_prefill = len(dropped)
     tokens = []
     for i in range(make_lm_golden.NEW):
         tok = torch.argmax(logits, dim=-1)
@@ -355,3 +413,9 @@ def test_the_port_reproduces_the_fixture(golden):
         logits, cache = model.decode_step(cache, token=tok[:, None])
         _close(logits, golden["decode_logits"][:, i])
     np.testing.assert_array_equal(np.stack(tokens, axis=1), golden["tokens"])
+    if cfg.moe is not None:
+        assert sum(dropped[n_prefill:]) > 0
+    if cfg.block_kind == "rwkv":
+        assert fx.prompt % 16
+    if cfg.block_kind == "hybrid":
+        assert fx.prompt > cache["k"].shape[2] == cfg.window
