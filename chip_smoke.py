@@ -256,17 +256,47 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 hymba's has 1,280 tokens at max_len 1,344, past its
                 1,024-slot ring.  Each line has its peak memory and its
                 seconds.
+  13. train   — training on the card (`train/`, `models.lm.forward` with
+                remat).  (a) granite-moe-1b-a400m at full size (24 layers,
+                1.33 B parameters, 32 experts top-8 at capacity 1.25, remat
+                "full", bf16 weights, AdamW at lr 3e-4) for `TRAIN_STEPS`
+                steps of 4 x 4,096 tokens of the seeded structured
+                `TokenStream`, prefetched: each step's loss, grad norm and
+                ms, tokens/s, peak memory, the pairs the router dropped in
+                step 0's forward, and a profiled step (device busy ms, idle
+                share, kernels) beside the step's bound (8 x active
+                parameters x tokens at 989 TFLOP/s bf16); the mean of the
+                last 3 losses must lie `TRAIN_LOSS_FALL` below step 0's.
+                (b) minitron-8b at full width with 2 of its 32 layers and
+                its 2 microbatches (a float32 accumulator, the untied
+                256,000 x 4,096 head): 3 steps of 2 x 4,096 tokens.  (c) one
+                step's loss and every gradient leaf in float32 against the
+                same step in float64 on the card (granite at a dropless E/k,
+                and minitron; full width, 2 layers, a loss mask with
+                zeros): the largest relative L2 gap within
+                `TRAIN_GRAD_LIMIT`, each planted fault's (the aux term
+                dropped; the loss mask ignored) past it.  (d) granite at
+                full width with 2 layers: 6 steps straight equal, bitwise,
+                to 3 steps, an async checkpoint, a restore into a freshly
+                made state and 3 more; the checkpoint restored on the CPU
+                equal to the card's state; the step's ms with
+                `torch.use_deterministic_algorithms` on beside off;
+                ``python -m repro_torch.launch.train`` in a subprocess,
+                resumed at its checkpoint's step.  (e) adam8bit against
+                AdamW from one start over 25 steps: the means of their last
+                5 losses within 0.25, the optimizer state's bytes under
+                each, one `Compressor` step's int8 levels.
 
-Launch counts are set to 0 just before each main-path phase (3, 4, 4b,
-4c, 4d, 4e, 4f, 5, 10 and 12: the fits, then each fitted classifier's predict
-and its netlist check; in 4b before each tick, swap and the boot; in 4c
-before the traffic and before the facade; in 4e before the parent's fit,
-read after the oracle, the refit process counting its own searches' launches;
-in 4f before each replay, the subprocess host's join, replay and leave,
-the boot and its first answers, and the evolution RPCs' submit; in 4g
-each rank counts its own from its start, and the replay is counted from
-0; in 12 nothing may launch) and read just after; a kernel of the path
-that did not launch fails the run.
+Launch counts are set to 0 just before each main-path phase (3, 4, 4b, 4c,
+4d, 4e, 4f, 5, 10, 12 and 13: the fits, then each fitted classifier's
+predict and its netlist check; in 4b before each tick, swap and the boot;
+in 4c before the traffic and before the facade; in 4e before the parent's
+fit, read after the oracle, the refit process counting its own searches'
+launches; in 4f before each replay, the subprocess host's join, replay and
+leave, the boot and its first answers, and the evolution RPCs' submit; in
+4g each rank counts its own from its start, and the replay is counted from
+0; in 12 and 13 nothing may launch) and read just after; a kernel of the
+path that did not launch fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -282,6 +312,12 @@ post-swap and the steady tick latency), then the medians per tree.
 runs only phase 12's decode-against-forward reading, over N seeds of
 weights and prompt, clean and with each planted fault: the readings that
 `LM_REL_L2_LIMIT` is set from.
+
+    python3 chip_smoke.py --train-calibrate N
+
+runs only phase 13's float32-against-float64 gradient reading, over N
+seeds of weights and batch, clean and with each planted fault: the
+readings that `TRAIN_GRAD_LIMIT` is set from.
 """
 from __future__ import annotations
 
@@ -332,9 +368,16 @@ from repro_torch.kernels.program import compile_program  # noqa: E402
 from repro_torch.launch.islands import launch_islands, spawn_ranks  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.data.pipeline import TokenStream  # noqa: E402
+from repro_torch.models.common import ModelConfig  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     init_params, param_dtype, param_shapes, params_from_reference)
 from repro_torch.models.lm import CausalLM  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train import train_step as train_lib  # noqa: E402
+from repro_torch.train.grad_compress import Compressor, quantize_with_feedback  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    OptConfig, init_opt_state, tree_leaves, tree_map)
 from repro_torch.runtime import aot  # noqa: E402
 from repro_torch.serve.artifacts import ArtifactStore  # noqa: E402
 from repro_torch.serve.async_frontend import AsyncCircuitServer  # noqa: E402
@@ -501,6 +544,37 @@ LM_FAULTS["rwkv6-7b"] = ("wkv_state_zeroed", "token_shift_zeroed")
 LM_FAULTS["hymba-1.5b"] = ("rope_position_plus_one", "mamba_state_zeroed", "cache_row_zeroed")
 # the decode step's recurrent state, read and written once (decode_bound)
 LM_STATE_KEYS = ("s", "last_x", "last_xc", "m_h", "m_conv")
+
+# train: (a) granite-moe-1b-a400m at full size (24 layers, d 1,024, vocab
+# 49,155, 32 experts top-8 at capacity 1.25, remat "full", bf16 weights,
+# AdamW, its config's optimizer) on the seeded structured TokenStream at
+# 4 x 4,096 tokens, the largest batch whose step fits beside the state
+# (PERF.md §6); (b) minitron-8b at full width with 2 of its 32 layers
+# and its 2 microbatches; (c) the float32 gradient check against float64;
+# (d) resume; (e) adam8bit against AdamW.  (b)–(e) cut granite and
+# minitron to `TRAIN_CUT_LAYERS` layers, never their widths.
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 4096, 12, 3e-4
+# the mean loss of the last 3 steps lies at least this far below step 0's
+# (PERF.md §6: 0.0674 read after 12 steps in a first run, which the same
+# seed repeats; the loss rises in the first steps, as Adam moves every
+# weight by ±lr, and falls by 0.149 after 30)
+TRAIN_LOSS_FALL = 0.04
+TRAIN_CUT_LAYERS = 2
+MINITRON_BATCH, MINITRON_STEPS = 2, 3
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 1024   # (c), (d) and (e)
+RESUME_STEPS, ADAM8_STEPS, ADAM8_BAND = 6, 25, 0.25
+BF16_DENSE_FLOPS = 989e12   # the H100's dense bf16 peak (SXM data sheet)
+# (c): the largest relative L2 gap of the float32 loss and of any gradient
+# leaf against the same step in float64 on the card, twice the largest
+# clean gap that `python3 chip_smoke.py --train-calibrate 3` read
+# (H100 80GB HBM3, 700 W; PERF.md §6): granite 8.828e-6, minitron
+# 1.434e-5; each planted fault (`TRAIN_FAULTS`) must go past it: their
+# smallest gaps were 0.0509 (granite's aux term dropped) and 0.4994 (the
+# mask ignored), 2,880x past the limit at least
+TRAIN_GRAD_LIMIT = {"granite-moe-1b-a400m": 1.77e-5, "minitron-8b": 2.87e-5}
+TRAIN_FAULTS = {"granite-moe-1b-a400m": ("aux_dropped", "loss_mask_ignored"),
+                "minitron-8b": ("loss_mask_ignored",)}
 
 
 class SmokeFailure(RuntimeError):
@@ -3346,6 +3420,415 @@ def lm_calibrate(seeds: int) -> int:
     return 0
 
 
+# -- phase 13: training ------------------------------------------------------
+def state_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def all_on_card(tree) -> bool:
+    return all(t.device.type == "cuda" for t in tree_leaves(tree))
+
+
+def train_profile(step, state, batch) -> tuple:
+    """One train step under `torch.profiler` (device activity only; the
+    trace's raw events, not its parsed tree): (state, metrics, its
+    kernels, the device's busy ms, the step's wall ms and the idle share
+    between, the seconds the profiler took to stop, the 8 kernels that
+    took the most device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    stop_s = time.perf_counter() - t0 - wall_ms / 1e3
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy_ms = sum(e.duration_ns() for e in device) / 1e6
+    kernels = sum(1 for e in device if not any(w in e.name().lower() for w in ("memcpy", "memset")))
+    by_name: dict = {}
+    for e in device:
+        count_ms = by_name.setdefault(e.name(), [0, 0.0])
+        count_ms[0] += 1
+        count_ms[1] += e.duration_ns() / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return state, m, {"device_events": len(device), "kernels": kernels, "device_busy_ms": busy_ms,
+                      "wall_ms": wall_ms, "idle_share": None if not device else 1 - busy_ms / wall_ms,
+                      "profiler_stop_s": stop_s, "distinct_kernels": len(by_name),
+                      "top_kernels_by_ms": [{"name": name[:90], "count": c, "ms": ms}
+                                            for name, (c, ms) in top]}
+
+
+def train_granite() -> dict:
+    """(a): granite-moe-1b-a400m at full size trained `TRAIN_STEPS` steps
+    on the card from weights drawn from `SEED`; step 0 reads the router's
+    drops (each reading waits for the card) and the last step is profiled,
+    so the median step ms is of the steps between."""
+    t_entry = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    opt = OptConfig(kind=cfg.optimizer, lr=TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    state, init_ms = synced(lambda: train_lib.make_train_state(
+        torch.Generator(device=DEVICE).manual_seed(SEED), cfg, opt, DEVICE))
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    step = train_lib.make_train_step(cfg, opt)
+    feed = TokenStream(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       seed=SEED).prefetching(0)
+    losses, norms, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        _, batch = next(feed)
+        if i == 0:
+            with RouteReadings() as routes:
+                (state, m), first_ms = synced(lambda: step(state, batch))
+        elif i == TRAIN_STEPS - 1:
+            state, m, profiled = train_profile(step, state, batch)
+        else:
+            (state, m), ms = synced(lambda: step(state, batch))
+            step_ms.append(ms)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    feed.close()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    median_ms = statistics.median(step_ms)
+    bound_ms = 8 * cfg.active_params() * tokens / BF16_DENSE_FLOPS * 1e3
+    forward_routes = routes.calls[:cfg.n_layers]     # then the remat's recompute
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+           "capacity_factor": cfg.moe.capacity_factor, "remat": cfg.remat, "dtype": cfg.dtype,
+           "optimizer": opt.kind, "lr": opt.lr, "parameters": n,
+           "active_parameters": cfg.active_params(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "tokens_per_step": tokens, "init_ms": init_ms,
+           "first_step_ms": first_ms, "step_ms": step_ms, "step_ms_median": median_ms,
+           "tokens_per_s": tokens / (median_ms / 1e3), "losses": losses, "grad_norms": norms,
+           "loss_fall": losses[0] - statistics.mean(losses[-3:]),
+           "predicted_loss_fall_at_least": TRAIN_LOSS_FALL,
+           "dropped_pairs_step0": {
+               "dropped": sum(c["dropped"] for c in forward_routes),
+               "pairs": sum(c["pairs"] for c in forward_routes),
+               "capacity": forward_routes[0]["capacity"],
+               "per_layer": [c["dropped"] for c in forward_routes]},
+           "route_calls_step0": len(routes.calls),
+           "state_bytes": {"params": state_bytes(state.params), "m": state_bytes(state.opt.m),
+                           "v": state_bytes(state.opt.v)},
+           "peak_memory_bytes": peak, "peak_mem_gb": peak / 1e9, "all_on_card": all_on_card(state),
+           "profiled_step": profiled, "step_bound_ms": bound_ms,
+           "step_bound_by": "operations: 8 x active parameters x tokens (6 for the forward "
+                            "and backward, 2 for remat's recompute) at 989 TFLOP/s bf16 dense",
+           "phase_s": time.perf_counter() - t_entry}
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"granite: a loss or grad norm is not finite: {losses} {norms}")
+    check(out["loss_fall"] >= TRAIN_LOSS_FALL,
+          f"granite: the loss fell {out['loss_fall']} in {TRAIN_STEPS} steps, "
+          f"under the predicted {TRAIN_LOSS_FALL}: {losses}")
+    check(out["all_on_card"], "granite: a tensor of the train state is not on the card")
+    check(n == cfg.n_params() - cfg.d_model,
+          f"granite: {n} parameters; the formula says {cfg.n_params()} (+ d for ln_f)")
+    return out
+
+
+def train_minitron() -> dict:
+    """(b): minitron-8b at full width with `TRAIN_CUT_LAYERS` of its 32
+    layers: its config's microbatches and float32 accumulator, dense GELU,
+    the untied 256,000 x 4,096 head."""
+    cfg = dataclasses.replace(get_config("minitron-8b"), n_layers=TRAIN_CUT_LAYERS)
+    opt = OptConfig(kind=cfg.optimizer, lr=TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_lib.make_train_state(torch.Generator(device=DEVICE).manual_seed(SEED), cfg,
+                                       opt, DEVICE)
+    step = train_lib.make_train_step(cfg, opt, microbatches=cfg.train_microbatches)
+    stream = TokenStream(vocab=cfg.vocab, batch=MINITRON_BATCH, seq_len=TRAIN_SEQ, seed=SEED)
+    losses, step_ms = [], []
+    for i in range(MINITRON_STEPS):
+        batch = stream.batch_at(i)
+        (state, m), ms = synced(lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(cfg.name).n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "act": cfg.act,
+           "head": list(state.params["head"].shape), "microbatches": cfg.train_microbatches,
+           "grad_accum_dtype": cfg.grad_accum_dtype, "batch": MINITRON_BATCH, "seq": TRAIN_SEQ,
+           "parameters": sum(p.numel() for p in tree_leaves(state.params)),
+           "losses": losses, "step_ms": step_ms,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "all_on_card": all_on_card(state)}
+    check(all(np.isfinite(losses)), f"minitron: a loss is not finite: {losses}")
+    check(out["all_on_card"], "minitron: a tensor of the train state is not on the card")
+    check(cfg.train_microbatches == 2 and not cfg.tie_embeddings and cfg.act == "gelu",
+          "minitron: not its config's microbatches, head or activation")
+    return out
+
+
+class Float64:
+    """Inside the block the port computes in float64: every ``.float()`` a
+    ``.double()`` and every config's dtype float64."""
+
+    def __enter__(self):
+        self.saved = (torch.Tensor.float, ModelConfig.torch_dtype)
+        torch.Tensor.float = torch.Tensor.double
+        ModelConfig.torch_dtype = property(lambda self: torch.float64)
+        return self
+
+    def __exit__(self, *exc):
+        torch.Tensor.float, ModelConfig.torch_dtype = self.saved
+
+
+def check_batch(cfg, seed: int) -> dict:
+    """(c)–(e)'s batch: the seeded stream's tokens and labels and a loss
+    mask with zeros (a quarter of the tokens)."""
+    b = TokenStream(vocab=cfg.vocab, batch=TRAIN_CHECK_BATCH, seq_len=TRAIN_CHECK_SEQ,
+                    seed=seed).batch_at(0)
+    b["loss_mask"] = (np.random.RandomState(seed).rand(TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ)
+                      < 0.75).astype(np.float32)
+    return {k: torch.as_tensor(v, device=DEVICE) for k, v in b.items()}
+
+
+def faulty_grads(params, cfg, batch: dict, fault: str):
+    """`_value_and_grad` with a planted fault: ``aux_dropped`` leaves the
+    experts' aux term out of the loss, ``loss_mask_ignored`` the mask."""
+    if fault == "loss_mask_ignored":
+        batch = {k: v for k, v in batch.items() if k != "loss_mask"}
+    weight = train_lib.AUX_LOSS_WEIGHT
+    if fault == "aux_dropped":
+        train_lib.AUX_LOSS_WEIGHT = 0.0
+    try:
+        return train_lib._value_and_grad(params, cfg, batch)
+    finally:
+        train_lib.AUX_LOSS_WEIGHT = weight
+
+
+def grad_check(arch: str, seed: int) -> dict:
+    """(c): the loss and every gradient leaf of one step in float32 on the
+    card against the same step in float64 on the card, at full width with
+    `TRAIN_CUT_LAYERS` layers, weights drawn from ``seed`` (the experts at
+    a dropless E/k): the largest relative L2 gap, clean and with each of
+    `TRAIN_FAULTS` planted.  The rotary frequency table is float32 in
+    both steps."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_CUT_LAYERS, dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, DEVICE)
+    batch = check_batch(cfg, seed)
+    with Float64():
+        p64 = tree_map(torch.Tensor.double, params)
+        loss64, _, g64 = train_lib._value_and_grad(p64, cfg, batch)
+        del p64
+    g64 = tree_leaves(g64)
+    readings = {}
+    for fault in ("clean", *TRAIN_FAULTS[arch]):
+        loss, _, grads = faulty_grads(params, cfg, batch, fault)
+        gaps = [float((g.double() - w).norm() / w.norm()) for g, w in zip(tree_leaves(grads), g64)]
+        del grads
+        loss_gap = abs(float(loss) - float(loss64)) / abs(float(loss64))
+        readings[fault] = max(loss_gap, *gaps)
+        if fault == "clean":
+            clean = {"loss_rel": loss_gap, "worst_leaf_rel": max(gaps)}
+    return {"arch": arch, "layers": cfg.n_layers, "seed": seed, "max_rel_l2": readings["clean"],
+            **clean, "faults_max_rel_l2": {f: readings[f] for f in TRAIN_FAULTS[arch]},
+            "checked_faults": list(TRAIN_FAULTS[arch]), "limit": TRAIN_GRAD_LIMIT[arch],
+            "loss64": float(loss64), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def check_grads(r: dict) -> None:
+    name = r["arch"]
+    check(r["limit"] is not None, f"{name}: no gradient limit is set")
+    check(r["max_rel_l2"] <= r["limit"], f"{name}: float32 gradients differ from float64 by a "
+                                         f"relative L2 of {r['max_rel_l2']} > {r['limit']}")
+    for fault in r["checked_faults"]:
+        gap = r["faults_max_rel_l2"][fault]
+        check(gap > r["limit"], f"{name}: the planted fault {fault} moves the gradients by "
+                                f"{gap}, within the limit {r['limit']}")
+
+
+def cut_granite():
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT_LAYERS)
+    return cfg, OptConfig(kind=cfg.optimizer, lr=TRAIN_LR)
+
+
+def run_steps(step, state, stream, start: int, n: int) -> tuple:
+    """``n`` steps from ``start``: (state, losses, each step's ms)."""
+    losses, ms = [], []
+    for i in range(start, start + n):
+        batch = stream.batch_at(i)
+        (state, m), t = synced(lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    return state, losses, ms
+
+
+def train_launcher(ckpt_dir: str) -> dict:
+    """``python -m repro_torch.launch.train`` on the card (its default) in
+    a subprocess: 4 steps of the smoke config at a 64-token sequence with a
+    checkpoint every 2, then ``--resume`` to 6."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+            "--batch", "4", "--seq", "64", "--ckpt-dir", ckpt_dir, "--ckpt-every", "2",
+            "--log-every", "1"]
+    runs = []
+    for extra in (["--steps", "4"], ["--steps", "6", "--resume"]):
+        t0 = time.perf_counter()
+        r = subprocess.run(base + extra, capture_output=True, text=True, timeout=300, env=env,
+                           cwd=ROOT)
+        runs.append({"exit_code": r.returncode, "wall_s": time.perf_counter() - t0,
+                     "stdout": r.stdout.splitlines(), "stderr_tail": r.stderr[-600:]})
+    resumed = runs[1]["stdout"]
+    out = {"runs": runs, "latest_step": train_ckpt.latest_step(ckpt_dir),
+           "resumed_line": resumed[0] if resumed else None,
+           "resumed_steps": [ln.split(":")[0] for ln in resumed[1:]]}
+    check(all(r["exit_code"] == 0 for r in runs), f"the train launcher failed: {runs}")
+    check(out["resumed_line"] == "resumed from step 4" and
+          out["resumed_steps"] == ["step 4", "step 5"] and out["latest_step"] == 6,
+          f"the train launcher did not resume at its checkpoint's step: {resumed}")
+    return out
+
+
+def train_resume() -> dict:
+    """(d): granite at full width with `TRAIN_CUT_LAYERS` layers, 6 steps
+    straight against 3 steps, an async save, a restore into a freshly
+    made state and 3 more: losses, parameters, both moments and the steps
+    bitwise; the checkpoint restored on the CPU equal to the card's state;
+    a step's ms with `torch.use_deterministic_algorithms` on; the launcher
+    resuming in a subprocess."""
+    cfg, opt = cut_granite()
+    stream = TokenStream(vocab=cfg.vocab, batch=TRAIN_CHECK_BATCH, seq_len=TRAIN_CHECK_SEQ,
+                         seed=SEED)
+    step = train_lib.make_train_step(cfg, opt)
+
+    def fresh():
+        return train_lib.make_train_state(torch.Generator(device=DEVICE).manual_seed(SEED), cfg,
+                                          opt, DEVICE)
+
+    full, l_full, ms_full = run_steps(step, fresh(), stream, 0, RESUME_STEPS)
+    half, l_half, _ = run_steps(step, fresh(), stream, 0, RESUME_STEPS // 2)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        t0 = time.perf_counter()
+        writer = train_ckpt.save(d, RESUME_STEPS // 2, half, blocking=False)
+        save_return_ms = (time.perf_counter() - t0) * 1e3
+        writer.join(timeout=300)
+        write_s = time.perf_counter() - t0
+        restored, at = train_ckpt.restore(d, fresh(), device=DEVICE)
+        on_cpu, _ = train_ckpt.restore(d, half, device="cpu")
+        cpu_same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(half),
+                                                               tree_leaves(on_cpu)))
+        n_leaves = len(train_ckpt._flatten(half))
+        launcher = train_launcher(os.path.join(d, "launcher"))
+    resumed, l_rest, _ = run_steps(step, restored, stream, RESUME_STEPS // 2, RESUME_STEPS // 2)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(full), tree_leaves(resumed)))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, _, ms_flag = run_steps(step, fresh(), stream, 0, 3)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_CHECK_BATCH,
+           "seq": TRAIN_CHECK_SEQ, "losses_straight": l_full, "losses_resumed": l_half + l_rest,
+           "restored_step": at, "checkpoint_leaves": n_leaves, "save_return_ms": save_return_ms,
+           "save_write_s": write_s, "bitwise_equal": same and l_half + l_rest == l_full,
+           "cpu_restore_equal": cpu_same, "step_ms": ms_full,
+           "deterministic_flag_step_ms": ms_flag, "launcher": launcher}
+    check(out["bitwise_equal"], f"resume is not bitwise: {l_full} against {l_half + l_rest}")
+    check(cpu_same, "the checkpoint restored on the CPU differs from the card's state")
+    check(at == RESUME_STEPS // 2 and n_leaves == 38, f"restored step {at}, {n_leaves} leaves")
+    return out
+
+
+def train_adam8() -> dict:
+    """(e): adam8bit against AdamW from one start, `ADAM8_STEPS` steps at
+    (c)'s shape; the optimizer state's bytes under each; one `Compressor`
+    step's int8 levels."""
+    cfg, _ = cut_granite()
+    params = init_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg, DEVICE)
+    stream = TokenStream(vocab=cfg.vocab, batch=TRAIN_CHECK_BATCH, seq_len=TRAIN_CHECK_SEQ,
+                         seed=SEED)
+    n = sum(p.numel() for p in tree_leaves(params))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "steps": ADAM8_STEPS, "parameters": n}
+    for kind in ("adamw", "adam8bit"):
+        opt = OptConfig(kind=kind, lr=TRAIN_LR)
+        state = train_lib.TrainState(params, init_opt_state(params, opt),
+                                     torch.zeros((), dtype=torch.int32, device=DEVICE))
+        opt_bytes = state_bytes(state.opt.m) + state_bytes(state.opt.v)
+        state, losses, ms = run_steps(train_lib.make_train_step(cfg, opt), state, stream, 0,
+                                      ADAM8_STEPS)
+        out[kind] = {"losses": losses, "last5_mean": statistics.mean(losses[-5:]),
+                     "step_ms_median": statistics.median(ms), "opt_state_bytes": opt_bytes,
+                     "opt_state_bytes_per_parameter": opt_bytes / n}
+        del state
+    out["last5_gap"] = abs(out["adam8bit"]["last5_mean"] - out["adamw"]["last5_mean"])
+    out["band"] = ADAM8_BAND
+    _, _, grads = train_lib._value_and_grad(params, cfg, check_batch(cfg, SEED))
+    sent, comp = Compressor.init(params).compress(grads)
+    levels = {}
+    for name, g, payload in (("embed", grads["embed"], sent["embed"]),
+                             ("e_wg", grads["blocks"]["e_wg"], sent["blocks"]["e_wg"])):
+        # a first step has no residual: the levels are round(g / scale)
+        scale = torch.amax(torch.abs(g.float())) / 127.0
+        q, _ = quantize_with_feedback(g, torch.zeros(g.shape, device=DEVICE), scale)
+        levels[name] = {"max_abs_level": int(q.abs().max()),
+                        "distinct_levels": int(q.unique().numel()),
+                        "integral": bool(torch.equal(q, torch.round(q))), "scale": float(scale),
+                        "payload_is_levels_times_scale": bool(torch.equal(
+                            payload, (q * scale).to(g.dtype)))}
+    out["compressor"] = {"levels": levels,
+                         "residual_max": max(float(e.abs().max()) for e in tree_leaves(comp.err))}
+    check(np.isfinite(out["adam8bit"]["losses"]).all(), "adam8bit: a loss is not finite")
+    check(out["last5_gap"] < ADAM8_BAND, f"adam8bit's last 5 losses are {out['last5_gap']} "
+                                         f"from AdamW's, past {ADAM8_BAND}")
+    check(all(v["max_abs_level"] <= 127 and v["integral"] and v["payload_is_levels_times_scale"]
+              for v in levels.values()), f"the compressor's payload is not int8 levels: {levels}")
+    return out
+
+
+def phase_train() -> dict:
+    """Training on the card (phase 13 of the module doc).  No kernel of
+    the table runs on it."""
+    t_phase = time.perf_counter()
+    circuit_eval.reset_launch_counts()
+    out = {"phase": "train", "card": gpu_line(),
+           "granite_moe_1b_a400m": released(train_granite),
+           "minitron_8b": released(train_minitron)}
+    checks = {}
+    for arch in TRAIN_FAULTS:
+        checks[arch.replace("-", "_")] = r = released(lambda: grad_check(arch, SEED))
+        check_grads(r)
+    out["grad_check"] = checks
+    out["resume"] = released(train_resume)
+    out["adam8bit"] = released(train_adam8)
+    out["launches"] = launch_counts()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    check(not any(out["launches"].values()),
+          f"the training path launched a circuit kernel: {out['launches']}")
+    return out
+
+
+def train_calibrate(seeds: int) -> int:
+    """``--train-calibrate N``: the readings that `TRAIN_GRAD_LIMIT` is
+    set from: `grad_check` clean and with each planted fault, for each
+    model and each of N seeds of weights and batch; one line per run, then
+    the largest clean gap and each fault's smallest per model."""
+    summary = {}
+    for arch in TRAIN_FAULTS:
+        runs = []
+        for seed in range(seeds):
+            run = released(lambda: grad_check(arch, seed))
+            emit(run)
+            runs.append(run)
+        summary[arch] = {"clean_max": max(r["max_rel_l2"] for r in runs),
+                         **{f + "_min": min(r["faults_max_rel_l2"][f] for r in runs)
+                            for f in TRAIN_FAULTS[arch]}}
+    emit({"phase": "train_calibrate", "card": gpu_line(), "seeds": seeds, "summary": summary})
+    return 0
+
+
 # -- A/B against another tree ----------------------------------------------
 def run_summary(text: str) -> dict:
     """Each kernel's ``ms`` and uncompacted ms, the one-shard ticks'
@@ -3414,6 +3897,8 @@ def main() -> int:
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--lm-calibrate":
         return lm_calibrate(int(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-calibrate":
+        return train_calibrate(int(sys.argv[2]))
     t_start = time.perf_counter()
     phase_env()
     checks = phase_kernel_checks()
@@ -3437,6 +3922,7 @@ def main() -> int:
     phase_profile(profile_case)
     phase_mlp_profile(baselines)
     phase_lm()
+    phase_train()
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     check(all(v > 0 for v in population_launches.values()),

@@ -9,18 +9,27 @@ and then cast to float32; the softmax runs in float32 and its output is
 cast to ``v``'s dtype before the second product.
 
 The chunked path bounds the score working set to (B, Hkv, G, chunk_q,
-chunk_kv) per step, with a Python loop over query and key/value chunks;
-blocks that a causal skip would eliminate are still computed and masked,
-as the reference's scan does.  The reference recomputes those blocks in
-its backward pass (``jax.checkpoint``); serving has no backward pass.  The
-reference's unused ``kv_valid_len`` and ``force_direct`` arguments are not
-carried over.
+chunk_kv) per step, with a Python loop over query and key/value chunks.
+The reference's scan computes and masks every block. In self-attention
+(no query offset, as many queries as keys), where every query row reads
+at least its own key, a block the mask covers wholly is skipped here and
+one it leaves wholly open is not masked, which changes no bit of the
+result: a covered block after a live one (one with any unmasked key)
+adds p = exp(−1e30 − m) = 0 under a correction of exp(0) = 1, and one
+before any live block is erased exactly by the correction exp(−1e30 − m)
+= 0 of the first block where each query row has a key. While gradients
+are recorded each query block is checkpointed, as the reference's is
+(``jax.checkpoint``, ``nothing_saveable``): its float32 scores and
+probabilities are recomputed in the backward pass instead of kept. The
+reference's unused ``kv_valid_len`` and ``force_direct`` arguments are
+not carried over.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -89,20 +98,38 @@ def gqa_attention_chunked(
     arange_q = torch.arange(cq, device=q.device)
     arange_k = torch.arange(ckv, device=q.device)
 
-    outs = []
-    for qi in range(nq):
-        qc = qs[:, qi]                                   # (B, cq, Hkv, G, hd)
-        pos_q = q_offset + qi * cq + arange_q
+    def kv_blocks(qi: int) -> list:
+        """(kj, masked) for the key/value blocks query block ``qi`` reads:
+        a block the mask covers wholly is left out, and one it leaves
+        wholly open is not masked (module doc).  Only in self-attention
+        (no offset, as many queries as keys), where every query row
+        reads its own key."""
+        if q_offset or sq != skv:
+            return [(kj, True) for kj in range(nk)]
+        q_lo = qi * cq
+        q_hi = q_lo + cq - 1
+        out = []
+        for kj in range(nk):
+            k_lo, k_hi = kj * ckv, kj * ckv + ckv - 1
+            if (causal and k_lo > q_hi) or (window is not None and q_lo - k_hi >= window):
+                continue
+            open_ = (not causal or k_hi <= q_lo) and (window is None or q_hi - k_lo < window)
+            out.append((kj, not open_))
+        return out
+
+    def q_block(qc: torch.Tensor, pos_q: torch.Tensor, blocks: list) -> torch.Tensor:
+        """One query block (B, cq, Hkv, G, hd) against its key/value
+        ``blocks`` → (B, cq, Hq, hd)."""
         m_run = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32, device=q.device)
         l_run = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, hkv, g, cq, hd), dtype=v.dtype, device=q.device)
-        for kj in range(nk):
+        for kj, masked in blocks:
             kc, vc = ks[:, kj], vs[:, kj]
-            pos_k = kj * ckv + arange_k
             s = torch.einsum("bqkgd,btkd->bkgqt", qc, kc).float()
             s = s * scale
-            msk = _mask(pos_q, pos_k, causal, window)    # (cq, ckv)
-            s = torch.where(msk, s, NEG_INF)
+            if masked:
+                msk = _mask(pos_q, kj * ckv + arange_k, causal, window)    # (cq, ckv)
+                s = torch.where(msk, s, NEG_INF)
             m_new = torch.maximum(m_run, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m_run - m_new)
@@ -112,7 +139,18 @@ def gqa_attention_chunked(
             m_run = m_new
         out = acc / torch.clamp(l_run, min=1e-20)[..., None].to(acc.dtype)
         # (B, Hkv, G, cq, hd) → (B, cq, Hq, hd)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, cq, hq, hd))
+        return out.permute(0, 3, 1, 2, 4).reshape(b, cq, hq, hd)
+
+    outs = []
+    for qi in range(nq):
+        pos_q = q_offset + qi * cq + arange_q
+        if torch.is_grad_enabled():
+            # recompute the block's scores and probabilities in the
+            # backward pass instead of keeping them
+            outs.append(checkpoint(q_block, qs[:, qi], pos_q, kv_blocks(qi),
+                                   use_reentrant=False))
+        else:
+            outs.append(q_block(qs[:, qi], pos_q, kv_blocks(qi)))
     return torch.cat(outs, dim=1)
 
 

@@ -9,7 +9,9 @@ shapes or dtypes differ from `param_shapes` and `param_dtype` (the
 leaves the reference keeps in float32 in a bf16 model among them).
 `init_params` draws a random start
 from an explicit `torch.Generator` (on the card: a CUDA generator, so
-8 B parameters are drawn there).
+8 B parameters are drawn there).  `train_state_from_reference` carries a
+whole reference ``TrainState`` (parameters, both moments, the steps)
+across with the same checks, so both packages can train from one start.
 """
 from __future__ import annotations
 
@@ -118,3 +120,50 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         return {k: move(x) for k, x in node.items()} if isinstance(node, dict) else node.to(device)
 
     return move(p)
+
+
+def _leaf(a, shape: tuple, dtype: str, where: str, device) -> torch.Tensor:
+    if not hasattr(a, "dtype"):
+        raise ValueError(f"{where} is a {type(a).__name__}; expected a {dtype} array")
+    if tuple(np.shape(a)) != tuple(shape):
+        raise ValueError(f"{where} has shape {tuple(np.shape(a))}; expected {tuple(shape)}")
+    if np.dtype(a.dtype).name != dtype:
+        raise ValueError(f"{where} is {np.dtype(a.dtype).name}; expected {dtype}")
+    return _tensor(a).to(device)
+
+
+def train_state_from_reference(tree, cfg: ModelConfig, opt_kind: str,
+                               device: "str | torch.device | None" = None):
+    """The reference's ``TrainState`` with numpy leaves (``params``, ``opt``
+    an ``OptState`` whose moments are float32 trees under ``"adamw"`` and
+    trees of ``Q8`` (int8 ``q``, float32 ``scale``) under ``"adam8bit"``,
+    ``step``) as the port's `TrainState` on ``device`` (``None``: the
+    card).  Refuses keys, shapes or dtypes that differ from ``cfg``'s."""
+    # imported here: the train package imports this module
+    from repro_torch.train.optimizer import BLOCK, OptState, Q8
+    from repro_torch.train.train_step import TrainState
+
+    if opt_kind not in ("adamw", "adam8bit"):
+        raise ValueError(f"unknown optimizer {opt_kind!r}")
+    device = resolve_device(device)
+    params = params_from_reference(tree.params, cfg, device)
+
+    def moment(node, want, where: str):
+        if isinstance(want, dict):
+            if not isinstance(node, dict) or set(node) != set(want):
+                raise ValueError(f"moment keys at {where or 'the root'} differ from "
+                                 f"{sorted(want)}")
+            return {k: moment(node[k], want[k], f"{where}{k}.") for k in want}
+        if opt_kind == "adamw":
+            return _leaf(node, want, "float32", where[:-1], device)
+        if not hasattr(node, "q") or not hasattr(node, "scale"):
+            raise ValueError(f"{where[:-1]} is not a Q8 (q, scale) leaf")
+        scale = (*want[:-1], -(-want[-1] // BLOCK))
+        return Q8(q=_leaf(node.q, want, "int8", where + "q", device),
+                  scale=_leaf(node.scale, scale, "float32", where + "scale", device))
+
+    shapes = param_shapes(cfg)
+    opt = OptState(step=_leaf(tree.opt.step, (), "int32", "opt.step", device),
+                   m=moment(tree.opt.m, shapes, "opt.m."),
+                   v=moment(tree.opt.v, shapes, "opt.v."))
+    return TrainState(params=params, opt=opt, step=_leaf(tree.step, (), "int32", "step", device))

@@ -3,8 +3,7 @@
 The initialisers draw from an explicit `torch.Generator` on the device
 the tensor is made on (a CUDA generator for a start on the card); torch
 cannot reproduce JAX's threefry streams, so weights carried from the
-reference go through `models/convert.py` instead.  The training loss
-(`cross_entropy_loss`) waits for the training slice.
+reference go through `models/convert.py` instead.
 """
 from __future__ import annotations
 
@@ -46,3 +45,18 @@ def act_fn(name: str):
     if name == "gelu":
         return _gelu_tanh
     raise ValueError(name)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 (``logsumexp`` less the gold
+    logit); labels int[...], logits [..., V].  With a mask, the masked
+    mean over ``max(mask.sum(), 1)`` tokens."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,11 +1,21 @@
 """Full language-model assembly: forward, prefill and decode for every
 block kind (PyTorch port of the reference's ``lm.py``).
 
+`forward` is the reference's functional forward over a parameter tree
+(`models/convert.py` makes one): it records gradients for training, with
+each layer rematerialised as ``cfg.remat`` says, as the reference's
+``_remat`` does — ``"full"`` checkpoints the whole layer, ``"dots"``
+keeps the outputs of the non-batched matrix products (``aten.mm``,
+the reference's ``dots_with_no_batch_dims_saveable``) and recomputes
+the rest, ``"none"`` keeps everything.  Remat applies only while
+gradients are recorded.
+
 `CausalLM` holds the reference's parameter tree — ``embed`` (V, d), the
 blocks stacked over layers (L, …), ``ln_f`` and ``head`` (d, V) unless
 the embeddings are tied — and loops over the layers in Python:
 
-  * `forward`     — a sequence → (logits, aux loss summed over layers,
+  * `forward`     — the module's `forward` recording no gradients: a
+                    sequence → (logits, aux loss summed over layers,
                     collected); with ``collect_kv`` it also returns what a
                     decode cache needs: every layer's (k, v) stacked (L, B,
                     S, Hkv, hd) for attention archs, the stacked RWKV
@@ -28,8 +38,13 @@ The model lives on one device, the card unless the caller passes
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
@@ -37,6 +52,119 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
+
+
+# the products whose outputs ``remat="dots"`` keeps: those without batch
+# dimensions (``x @ w``; the attention einsums and the experts' ``bmm``
+# are batched and recomputed)
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` (one layer) checkpointed as ``cfg.remat`` says, while
+    gradients are recorded (module doc)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def _embed_in(params: dict, cfg: ModelConfig, tokens=None, embeds=None) -> torch.Tensor:
+    device = params["embed"].device
+    if embeds is not None:
+        return embeds.to(device, cfg.torch_dtype)
+    # `F.embedding`: its backward on the card sums each row's gradients in
+    # one order on every run, so a resumed run repeats a straight one
+    return F.embedding(tokens.to(device).long(), params["embed"]).to(cfg.torch_dtype)
+
+
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return x @ head.to(x.dtype)
+
+
+def _default_positions(cfg: ModelConfig, b: int, s: int, device, offset: int = 0) -> torch.Tensor:
+    pos = torch.arange(offset, offset + s, dtype=torch.int32, device=device)
+    pos = pos[None, :].expand(b, s)
+    if cfg.rope_kind == "mrope":
+        pos = pos[..., None].expand(b, s, 3)
+    return pos
+
+
+def _rwkv_state(cfg: ModelConfig, b: int, device) -> ssm_lib.RWKVState:
+    return ssm_lib.rwkv_state_init(b, cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim,
+                                   cfg.d_model, cfg.torch_dtype, device)
+
+
+def forward(params: dict, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
+            collect_kv: bool = False):
+    """→ (logits (B, S, V), aux loss summed over layers, collected or
+    None) over the parameter tree ``params`` (module doc); every layer
+    starts its recurrent state from zeros.  Runs where ``params`` lies."""
+    x = _embed_in(params, cfg, tokens, embeds)
+    device = x.device
+    b, s, _ = x.shape
+    stacked = params["blocks"]
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+
+    def layer(i: int) -> dict:
+        return {k: v[i] for k, v in stacked.items()}
+
+    if cfg.block_kind == "rwkv":
+        def rwkv_body(x, lp):
+            return blocks.rwkv_block(x, lp, cfg, _rwkv_state(cfg, b, device))
+
+        states = []
+        for i in range(cfg.n_layers):
+            x, st = _remat(rwkv_body, cfg)(x, layer(i))
+            if collect_kv:
+                states.append(st)
+        collected = (ssm_lib.RWKVState(*(torch.stack(t) for t in zip(*states)))
+                     if collect_kv else None)
+        return _logits(params, cfg, x), aux, collected
+
+    positions = (_default_positions(cfg, b, s, device) if positions is None
+                 else positions.to(device))
+    window = cfg.window if cfg.attn_kind == "sliding" else None
+
+    def attn_body(x, lp):
+        return blocks.attn_block(x, lp, cfg, positions, window=window, collect_kv=collect_kv)
+
+    def hybrid_body(x, lp, win):
+        mst = ssm_lib.mamba_state_init(b, cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim,
+                                       cfg.ssm.conv_dim, cfg.torch_dtype, device)
+        return blocks.hybrid_block(x, lp, cfg, positions, mst, window=win,
+                                   collect_kv=collect_kv)
+
+    ks, vs, m_h, m_conv = [], [], [], []
+    for i in range(cfg.n_layers):
+        if cfg.block_kind == "hybrid":
+            # the global layers see the whole sequence: a window of s
+            win = s if i in cfg.global_layers else cfg.window
+            x, kv, mst, a = _remat(hybrid_body, cfg)(x, layer(i), win)
+            m_h.append(mst.h)
+            m_conv.append(mst.conv)
+        else:
+            x, kv, a = _remat(attn_body, cfg)(x, layer(i))
+        aux = aux + a
+        if collect_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    collected = None
+    if collect_kv:
+        collected = (torch.stack(ks), torch.stack(vs))
+        if cfg.block_kind == "hybrid":
+            collected = (collected, (torch.stack(m_h), torch.stack(m_conv)))
+    return _logits(params, cfg, x), aux, collected
 
 
 class CausalLM(nn.Module):
@@ -73,27 +201,21 @@ class CausalLM(nn.Module):
         return cfg.block_kind == "hybrid" or (cfg.attn_kind == "sliding"
                                               and not cfg.global_layers)
 
+    def params(self) -> dict:
+        """The parameter tree (the module's tensors, shared)."""
+        p = {"embed": self.embed, "blocks": dict(self.blocks), "ln_f": self.ln_f}
+        if self.head is not None:
+            p["head"] = self.head
+        return p
+
     def _embed_in(self, tokens=None, embeds=None) -> torch.Tensor:
-        if embeds is not None:
-            return embeds.to(self.device, self.cfg.torch_dtype)
-        return self.embed[tokens.to(self.device).long()].to(self.cfg.torch_dtype)
+        return _embed_in(self.params(), self.cfg, tokens, embeds)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
-        head = self.embed.T if self.cfg.tie_embeddings else self.head
-        return x @ head.to(x.dtype)
+        return _logits(self.params(), self.cfg, x)
 
     def _positions(self, b: int, s: int, offset: int = 0) -> torch.Tensor:
-        pos = torch.arange(offset, offset + s, dtype=torch.int32, device=self.device)
-        pos = pos[None, :].expand(b, s)
-        if self.cfg.rope_kind == "mrope":
-            pos = pos[..., None].expand(b, s, 3)
-        return pos
-
-    def _rwkv_state(self, b: int) -> ssm_lib.RWKVState:
-        cfg = self.cfg
-        return ssm_lib.rwkv_state_init(b, cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim,
-                                       cfg.d_model, cfg.torch_dtype, self.device)
+        return _default_positions(self.cfg, b, s, self.device, offset)
 
     def _d_inner(self) -> int:
         return self.cfg.ssm.expand * self.cfg.d_model
@@ -101,48 +223,9 @@ class CausalLM(nn.Module):
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self, tokens=None, embeds=None, positions=None, collect_kv: bool = False):
-        """→ (logits (B, S, V), aux_loss, collected or None) (module doc)."""
-        cfg = self.cfg
-        x = self._embed_in(tokens, embeds)
-        b, s, _ = x.shape
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        if cfg.block_kind == "rwkv":
-            states = []
-            for i in range(cfg.n_layers):
-                x, st = blocks.rwkv_block(x, self._layer(i), cfg, self._rwkv_state(b))
-                if collect_kv:
-                    states.append(st)
-            collected = (ssm_lib.RWKVState(*(torch.stack(t) for t in zip(*states)))
-                         if collect_kv else None)
-            return self._logits(x), aux, collected
-
-        positions = (self._positions(b, s) if positions is None
-                     else positions.to(self.device))
-        ks, vs, m_h, m_conv = [], [], [], []
-        for i in range(cfg.n_layers):
-            lp = self._layer(i)
-            if cfg.block_kind == "hybrid":
-                # the global layers see the whole sequence: a window of s
-                win = s if i in cfg.global_layers else cfg.window
-                mst = ssm_lib.mamba_state_init(b, self._d_inner(), cfg.ssm.state_dim,
-                                               cfg.ssm.conv_dim, cfg.torch_dtype, self.device)
-                x, kv, mst, a = blocks.hybrid_block(x, lp, cfg, positions, mst, window=win,
-                                                    collect_kv=collect_kv)
-                m_h.append(mst.h)
-                m_conv.append(mst.conv)
-            else:
-                x, kv, a = blocks.attn_block(x, lp, cfg, positions, window=self._window(),
-                                             collect_kv=collect_kv)
-            aux = aux + a
-            if collect_kv:
-                ks.append(kv[0])
-                vs.append(kv[1])
-        collected = None
-        if collect_kv:
-            collected = (torch.stack(ks), torch.stack(vs))
-            if cfg.block_kind == "hybrid":
-                collected = (collected, (torch.stack(m_h), torch.stack(m_conv)))
-        return self._logits(x), aux, collected
+        """→ (logits (B, S, V), aux_loss, collected or None) (module doc),
+        recording no gradients."""
+        return forward(self.params(), self.cfg, tokens, embeds, positions, collect_kv)
 
     def cache_len(self, max_len: int) -> int:
         """Slots per layer of the attention cache: ``max_len``, or a

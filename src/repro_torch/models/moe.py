@@ -24,7 +24,7 @@ two orders agree within the tests' tolerance.
 
 The Switch aux loss ``E · Σ_e f_e · p̄_e`` is returned beside the output.
 The reference's ``moe_ffn_sharded`` (experts over a mesh axis) waits for
-the training slice, with `sharding/`.
+the sharding slice, with `sharding/`.
 """
 from __future__ import annotations
 
@@ -78,12 +78,16 @@ def dispatch(x: torch.Tensor, plan: Dispatch) -> torch.Tensor:
     """The (E, C, D) expert buffer: each kept pair's token row at its
     (expert, rank) slot, zeros elsewhere.  Dropped pairs are written to a
     spare slot C that is cut off, so nothing waits on the host for the
-    count of kept pairs."""
+    count of kept pairs, and their gradient is zero, as the reference's
+    ``mode="drop"`` write gives."""
     e = plan.probs.shape[1]
     k = plan.gates.shape[1]
-    buf = torch.zeros((e, plan.cap + 1, x.shape[1]), dtype=x.dtype, device=x.device)
-    flat_t = torch.arange(x.shape[0], device=x.device).repeat_interleave(k)
-    buf[plan.flat_e, torch.clamp(plan.rank, max=plan.cap)] = x[flat_t]
+    t, d = x.shape
+    buf = torch.zeros((e, plan.cap + 1, d), dtype=x.dtype, device=x.device)
+    # each token's row once per pair, token-major: its backward sums the k
+    # pairs of a token over a view, in one order on every run
+    rows = x[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf[plan.flat_e, torch.clamp(plan.rank, max=plan.cap)] = rows
     return buf[:, :plan.cap]
 
 

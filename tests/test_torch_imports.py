@@ -68,7 +68,12 @@ def test_port_has_modules():
                  "repro_torch.models.attention", "repro_torch.models.blocks",
                  "repro_torch.models.lm", "repro_torch.models.convert",
                  "repro_torch.configs", "repro_torch.configs.shapes",
-                 "repro_torch.configs.minitron_8b", "repro_torch.serve.engine"):
+                 "repro_torch.configs.minitron_8b", "repro_torch.serve.engine",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+                 "repro_torch.train.fault_tolerance", "repro_torch.train.grad_compress",
+                 "repro_torch.data.pipeline", "repro_torch.launch.train",
+                 "repro_torch.configs.tiny_classifier"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 
