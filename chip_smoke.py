@@ -88,8 +88,9 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 64-row requests through the front end (pumped inline) with
                 label feedback; 10 stationary requests, then a shift of
                 1.5 until a promoted circuit has served 5 requests (a
-                canary rolled back on probation re-arms the loop), giving
-                up after the benchmark's 2,000.  `EvolutionManager`
+                canary rolled back on probation re-arms the loop, and the
+                phase serves on past the benchmark's 2,000 for it), giving
+                up after 4,000.  `EvolutionManager`
                 (`observe_every=2`, a 2,048-row replay window, the
                 benchmark's `DriftConfig` and `PromotionPolicy`) detects
                 the drift, refits in its worker's own process on the card
@@ -286,16 +287,44 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 AdamW from one start over 25 steps: the means of their last
                 5 losses within 0.25, the optimizer state's bytes under
                 each, one `Compressor` step's int8 levels.
+  14. sharded — training and decode over a mesh (`sharding/`,
+                `launch/mesh.py`): 4 gloo ranks share the card as
+                ``make_host_mesh(data=2, model=2)`` (`spawn_ranks`; NCCL
+                refuses two ranks on one device), each rank's program
+                `sharded_rank` here.  First every collective the port
+                issues on CUDA tensors (float32, bf16, int8) against its
+                value.  (a) granite-moe at full width, 2 of 24 layers,
+                float32, 3 AdamW steps of 2 x 1,024 tokens at capacity
+                1.25, then a prefill and 4 forced decode steps (dropless):
+                every loss, parameter leaf and step's logits against the
+                same 4-rank program on the CPU from one start, within
+                `SHARDED_REL_LIMIT`, and each planted fault past it (one
+                data shard's gradients left out of the reduce-scatter,
+                the other tp rank's experts, a cache row on the other tp
+                rank's slice).  (b) `moe_ffn_sharded` at full width and
+                capacity 1.25 on 2 x 4,096 tokens a data shard against
+                `moe_ffn_sharded_plain` on the card, drops equal.  (c)
+                granite at full width, 4 layers, bf16, 6 AdamW steps of 4 x
+                4,096 stream tokens: losses, step ms, each rank's peak
+                memory, collective bytes and ms a step by kind, every
+                rank's state on the card in its fitted blocks; the state
+                saved from the mesh.  (d) granite (dropless) and rwkv6-7b
+                at full width, 2 layers, float32: a prefill of 4 x 64 and
+                16 greedy steps on the mesh (weights gathered once) equal
+                to one process's tokens, logits within the limit.  (e)
+                (c)'s checkpoint restored on a 1 x 2 mesh of 2 new ranks
+                and in this process, bitwise the files.
 
 Launch counts are set to 0 just before each main-path phase (3, 4, 4b, 4c,
-4d, 4e, 4f, 5, 10, 12 and 13: the fits, then each fitted classifier's
+4d, 4e, 4f, 5, 10, 12, 13 and 14: the fits, then each fitted classifier's
 predict and its netlist check; in 4b before each tick, swap and the boot;
 in 4c before the traffic and before the facade; in 4e before the parent's
 fit, read after the oracle, the refit process counting its own searches'
 launches; in 4f before each replay, the subprocess host's join, replay and
 leave, the boot and its first answers, and the evolution RPCs' submit; in
 4g each rank counts its own from its start, and the replay is counted from
-0; in 12 and 13 nothing may launch) and read just after; a kernel of the
+0; in 12, 13 and 14 nothing may launch, and in 14 each rank counts its own
+from its start, summed with the parent's) and read just after; a kernel of the
 path that did not launch fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -318,13 +347,28 @@ weights and prompt, clean and with each planted fault: the readings that
 runs only phase 13's float32-against-float64 gradient reading, over N
 seeds of weights and batch, clean and with each planted fault: the
 readings that `TRAIN_GRAD_LIMIT` is set from.
+
+    python3 chip_smoke.py --sharded-calibrate N
+
+runs only phase 14's (a) over N seeds, clean and with each planted fault,
+then (d) once: the readings that `SHARDED_REL_LIMIT` is set from.
+
+    python3 chip_smoke.py --evolve-rollbacks N
+
+runs only phase 4e, with the first N promoted canaries forced into a
+rollback at their first probation check (their bar set just past their
+labeled accuracy): the late rollback that makes the phase serve on past
+the benchmark's 2,000 post-shift requests.
 """
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -472,11 +516,14 @@ CHURN_AT_S = ((0.5, "add"), (1.3, "remove"), (2.1, "add"), (2.9, "remove"))
 # oracle; 64-row requests; 10 stationary requests, then a shift of 1.5 until
 # 5 requests after the promotion, giving up after EVOLVE_WINDOW post-shift
 # requests; a 2,048-row replay window.  One departure: a canary rolled back
-# within those 5 requests re-arms the loop inside the window (the benchmark
-# would stop with the parent live)
+# within those 5 requests re-arms the loop (the benchmark would stop with the
+# parent live), and the phase serves on past the window, up to
+# EVOLVE_MAX_REQUESTS, until a promoted circuit has served 5; the first
+# promotion must still come within the window
 EVOLVE_TENANT, EVOLVE_FEATS, EVOLVE_GATES = "t0", 6, 100
 EVOLVE_ROWS, EVOLVE_GENS, EVOLVE_SHIFT = 64, 1200, 1.5
 EVOLVE_WINDOW, EVOLVE_STATIONARY, EVOLVE_TAIL = 2000, 10, 5
+EVOLVE_MAX_REQUESTS = 2 * EVOLVE_WINDOW
 EVOLVE_REPLAY, EVOLVE_OBSERVE_EVERY = 2048, 2
 EVOLVE_TRACE_EVENTS = 1 << 20   # the stack's timeline: about 25 events a request
 # fleet: benchmarks/serve_fleet.py's run() at its defaults — 2 in-process
@@ -1538,6 +1585,26 @@ def evolve_serve(fe, x, labels=None):
     return ids
 
 
+class ForcedRollbacks(EvolutionManager):
+    """`EvolutionManager` whose first ``forced`` promoted canaries are
+    rolled back at their first probation check: the bar is set just past
+    the canary's labeled accuracy, so the manager's own rule rolls back."""
+
+    def __init__(self, *args, forced: int, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.to_force = forced
+
+    def _check_probation(self, summary: dict) -> None:
+        with self._lock:
+            for prob in self._probation.values():
+                # the rule below rolls the canary back in this call
+                if self.to_force and prob["labeled"] >= self.policy.min_labeled_rows:
+                    self.to_force -= 1
+                    prob["baseline"] = (prob["correct"] / prob["labeled"]
+                                        + self.policy.rollback_margin + 1e-3)
+        super()._check_probation(summary)
+
+
 def evolve_overhead(sc, seed: int, blocks: int = 64, block_batches: int = 4,
                     step_every: int = 4) -> dict:
     """The benchmark's `measure_overhead`: the same stationary stream
@@ -1747,12 +1814,14 @@ def evolve_contention(parent, refit_cfg, requests: int = 50) -> dict:
     return out
 
 
-def phase_evolve() -> dict:
+def phase_evolve(forced_rollbacks: int = 0) -> dict:
     """Online evolution on the card (phase 4e of the module doc): the
     benchmark's drift → background refit → shadow → promote scenario, then
     its oracle, the three searches replayed through the plain versions on
     the card, the overhead legs and a profile of the tick during a refit.
-    Returns the path's launches of both kernels."""
+    ``forced_rollbacks`` promoted canaries are rolled back by
+    `ForcedRollbacks` (``--evolve-rollbacks``).  Returns the path's
+    launches of both kernels."""
     t_phase = time.perf_counter()
     refit_cfg = RefitConfig(max_gens=EVOLVE_GENS, kappa=max(EVOLVE_GENS // 4, 50),
                             min_replay_rows=EVOLVE_REPLAY)
@@ -1768,7 +1837,9 @@ def phase_evolve() -> dict:
         parent = clf.to_servable()
         tracer = TraceRecorder(capacity=EVOLVE_TRACE_EVENTS)
         reg, server, fe = evolve_stack(parent, tracer)
-        mgr = EvolutionManager(
+        manager = (functools.partial(ForcedRollbacks, forced=forced_rollbacks)
+                   if forced_rollbacks else EvolutionManager)
+        mgr = manager(
             fe, drift=DriftConfig(
                 window=512,
                 min_rows=(EVOLVE_STATIONARY * EVOLVE_ROWS + EVOLVE_REPLAY)
@@ -1806,7 +1877,7 @@ def phase_evolve() -> dict:
             mgr.step()
         check(not mgr.detector(EVOLVE_TENANT).drifted, "evolve: a false trigger pre-shift")
         tail = 0
-        for i in range(EVOLVE_WINDOW):
+        for i in range(EVOLVE_MAX_REQUESTS):
             lost += serve(*evolve_rows(EVOLVE_ROWS, shift=EVOLVE_SHIFT,
                                        seed=SEED * 13 + 100 + i))
             during_refit += mgr.worker.busy(EVOLVE_TENANT)
@@ -1817,7 +1888,9 @@ def phase_evolve() -> dict:
                 promoted_at = i + 1
             # the benchmark stops 5 requests after a promotion; a canary
             # rolled back on probation within them re-arms the loop, so
-            # the phase serves on until a promoted circuit has served 5
+            # the phase serves on, past the benchmark's window if a
+            # rollback came late in it, until a promoted circuit has
+            # served 5
             promoted = (reg.get(EVOLVE_TENANT).lineage or {}).get("verdict") == "promoted"
             tail = tail + 1 if promoted else 0
             if tail >= EVOLVE_TAIL:
@@ -1920,6 +1993,9 @@ def phase_evolve() -> dict:
     n = len(served)
     out = {"phase": "evolve", "card": gpu_line(), "n_requests": n,
            "requests_to_promotion": promoted_at, "benchmark_window": EVOLVE_WINDOW,
+           "served_past_benchmark_window": max(n - EVOLVE_STATIONARY - EVOLVE_WINDOW, 0),
+           "forced_rollbacks": forced_rollbacks,
+           "promoted_tail": tail,
            "promoted_within_benchmark_window": promoted_at is not None
            and promoted_at <= EVOLVE_WINDOW,
            "batch_rows": EVOLVE_ROWS, "search_gens": EVOLVE_GENS, "shift": EVOLVE_SHIFT,
@@ -1960,6 +2036,11 @@ def phase_evolve() -> dict:
           f"evolve: {out['refits']} refits, {out['promotions']} promotions")
     check(out["promoted_within_benchmark_window"],
           f"evolve: no promotion within the benchmark's {EVOLVE_WINDOW} post-shift requests")
+    check(out["rollbacks"] >= forced_rollbacks,
+          f"evolve: {out['rollbacks']} rollbacks, {forced_rollbacks} forced")
+    check(tail >= EVOLVE_TAIL, f"evolve: no promoted circuit served {EVOLVE_TAIL} requests "
+          f"within {EVOLVE_MAX_REQUESTS} post-shift requests "
+          f"({out['rollbacks']} rollbacks)")
     check(lost == 0, f"evolve: {lost} requests lost")
     check(during_refit >= 1, "evolve: no request was served while the refit ran")
     check(acc_after > acc_before, f"evolve: accuracy {acc_before} -> {acc_after}")
@@ -3829,6 +3910,539 @@ def train_calibrate(seeds: int) -> int:
     return 0
 
 
+# -- 14. sharded training and decode on a mesh --------------------------------
+# Four gloo ranks share the card as make_host_mesh(data=2, model=2): NCCL
+# refuses two ranks on one device.  Each rank is a fresh interpreter
+# (`spawn_ranks`) that imports this file for its program (`sharded_rank`).
+SHARDED_MESH = (2, 2)
+SHARDED_ARCH = "granite-moe-1b-a400m"
+PARITY_LR = 3e-4
+SHARDED_TIMEOUT_S = 900.0
+# (a): full width, 2 of 24 layers, float32, 2 x 1,024 tokens at the real
+# capacity 1.25, 3 AdamW steps; then, from the start, a prefill of the
+# first 64 tokens and 4 decode steps fed the next ones (a cache of 128
+# slots: 64 a tp rank)
+PARITY_LAYERS, PARITY_BATCH, PARITY_SEQ, PARITY_STEPS = 2, 2, 1024, 3
+PARITY_PROMPT, PARITY_DECODE, PARITY_MAX_LEN = 64, 4, 128
+# (a)'s limits on the largest relative gap of the card's run to the same
+# 4-rank program on the CPU, twice the largest clean gaps that
+# `python3 chip_smoke.py --sharded-calibrate 3` read (H100 80GB HBM3,
+# 700 W; PERF.md §6): "train" over every loss and parameter leaf, 4.49e-4
+# at most (at capacity 1.25 a pair that routes or drops differently near
+# a tie parts the two runs), and "decode" over every decode step's
+# logits, (a)'s and (d)'s, 4.38e-6 at most (rwkv6's mesh decode); the
+# faults' smallest readings were 0.0382 (train) and 0.319 (decode)
+SHARDED_REL_LIMIT = {"train": 8.99e-4, "decode": 8.76e-6}
+# each planted fault and the reading it moves
+SHARDED_FAULTS = {"shard_grad_dropped": "train", "wrong_tp_experts": "train",
+                  "cache_row_wrong_shard": "decode"}
+# (b): the experts at full width and the real capacity, 2 x 4,096 tokens a
+# data shard
+EXPERT_TOKENS_PER_SHARD = 2 * 4096
+EXPERT_ATOL = 1e-5
+# (c): bf16 training at full width, 4 of 24 layers, 4 x 4,096 tokens of the
+# TokenStream, 6 AdamW steps, whose losses must fall
+# (6 steps on a fresh stream batch each rose at 3e-4 and 1e-3, as the
+# train phase's first steps do: PERF.md §6), so its steps repeat the
+# stream's first batch, at the train phase's 3e-4
+BF16_LAYERS, BF16_BATCH, BF16_SEQ, BF16_STEPS = 4, 4, 4096, 6
+BF16_LR = 3e-4
+# (d): decode on the mesh at full width with these depth cuts, float32, the
+# experts at a dropless E/k: batch 4, a 64-token prompt, 16 greedy steps
+MESH_DECODE_LAYERS = {"granite-moe-1b-a400m": 2, "rwkv6-7b": 2}
+MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_STEPS, MESH_DECODE_MAX_LEN = 4, 64, 16, 96
+
+
+def mesh_rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.to(got.device).double()
+    return float((got.double() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def gloo_on_cuda(mesh) -> dict:
+    """Every collective the port issues, over the world on the card's
+    tensors in float32, bfloat16 and int8, each result against its value
+    computed here: which ones gloo takes on CUDA tensors."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import collectives as C
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    axes = tuple(mesh.axis_names)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        def mine(r, n=8):
+            return (torch.arange(n, device=mesh.device) % 5 + r).to(dtype)
+
+        every = torch.stack([mine(r) for r in range(world)])
+        name = str(dtype).removeprefix("torch.")
+        got = {
+            "all_gather": C._raw_all_gather(mine(rank), mesh, axes, 0),
+            "reduce_scatter": C._raw_reduce_scatter(
+                torch.cat([mine(rank, 2)] * world), mesh, axes, 0),
+            "all_reduce": C._raw_all_reduce(mine(rank), mesh, axes),
+            "all_reduce_max": C.all_reduce_max(mine(rank), mesh, axes),
+        }
+        want = {"all_gather": every.reshape(-1),
+                "reduce_scatter": torch.stack([mine(r, 2) for r in range(world)]).sum(0).to(dtype),
+                "all_reduce": every.sum(0).to(dtype), "all_reduce_max": every.amax(0)}
+        for kind, t in got.items():
+            out[f"{kind}:{name}"] = bool(t.device.type == "cuda" and torch.equal(t, want[kind]))
+    return out
+
+
+def parity_cfg():
+    return dataclasses.replace(get_config(SHARDED_ARCH), n_layers=PARITY_LAYERS, dtype="float32")
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """(a)'s planted faults: ``shard_grad_dropped`` zeroes data shard 1's
+    contribution to every gradient reduce-scatter over the data axis,
+    ``wrong_tp_experts`` dispatches each tp rank's pairs to the other
+    rank's experts, ``cache_row_wrong_shard`` writes each decode row into
+    the other tp rank's slice of the cache."""
+    from repro_torch.models import blocks as lm_blocks
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.specs import _names
+
+    saved = (C._raw_reduce_scatter, lm_moe._local_dispatch_compute, lm_blocks._cache_write)
+    if fault == "shard_grad_dropped":
+        def reduce_scatter(x, mesh, axes, dim):
+            if "data" in _names(axes) and mesh.coords["data"] == 1:
+                x = torch.zeros_like(x)
+            return saved[0](x, mesh, axes, dim)
+
+        C._raw_reduce_scatter = reduce_scatter
+    elif fault == "wrong_tp_experts":
+        def dispatch(x, router, wg, wu, wd, cfg, m_idx, e_loc):
+            return saved[1](x, router, wg, wu, wd, cfg, (m_idx + 1) % (cfg.n_experts // e_loc),
+                            e_loc)
+
+        lm_moe._local_dispatch_compute = dispatch
+    elif fault == "cache_row_wrong_shard":
+        def cache_write(cache, row, pos, offset=0):
+            t = cache.shape[1]
+            return saved[2](cache, row, pos, offset - t if offset >= t else offset + t)
+
+        lm_blocks._cache_write = cache_write
+    try:
+        yield
+    finally:
+        C._raw_reduce_scatter, lm_moe._local_dispatch_compute, lm_blocks._cache_write = saved
+
+
+def parity_run(mesh, seed: int) -> dict:
+    """(a)'s training: the whole start drawn on the host from ``seed`` (the
+    same on the card and on the CPU), 3 sharded AdamW steps on the seeded
+    stream's batch.  → the batch, losses, the parameters' blocks and
+    gathered whole."""
+    from repro_torch.sharding import collectives as C
+
+    cfg = parity_cfg()
+    opt = OptConfig(lr=PARITY_LR)
+    shs = train_lib.train_state_shardings(cfg, opt, mesh)
+    state = train_lib.make_train_state(torch.Generator().manual_seed(seed), cfg, opt,
+                                       shardings=shs)
+    start = state.params   # the step writes nothing in place
+    batch = TokenStream(vocab=cfg.vocab, batch=PARITY_BATCH, seq_len=PARITY_SEQ,
+                        seed=seed).batch_at(0)
+    step = train_lib.make_train_step(cfg, opt, grad_shardings=shs.params)
+    losses = []
+    for _ in range(PARITY_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    return {"batch": batch, "losses": losses, "start": start,
+            "params": tree_leaves(C.gather_tree(state.params, shs.params))}
+
+
+def parity_decode(mesh, run: dict) -> torch.Tensor:
+    """(a)'s decode: from the start (the trained states part at ties), a
+    prefill of the batch's first tokens and decode steps fed the next
+    ones, on the mesh, the experts at a dropless E/k; every step's
+    logits."""
+    cfg = parity_cfg()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    model = CausalLM(cfg, run["start"], mesh=mesh)
+    tokens = torch.as_tensor(run["batch"]["tokens"])
+    logits, cache = model.prefill(tokens[:, :PARITY_PROMPT], max_len=PARITY_MAX_LEN)
+    steps = [logits]
+    for i in range(PARITY_DECODE):
+        fed = tokens[:, PARITY_PROMPT + i:PARITY_PROMPT + i + 1]
+        logits, cache = model.decode_step(cache, fed)
+        steps.append(logits)
+    return torch.stack(steps)
+
+
+def parity_full(mesh, seed: int) -> dict:
+    run = parity_run(mesh, seed)
+    return {**run, "logits": parity_decode(mesh, run)}
+
+
+def parity_gap(run: dict, ref: dict) -> dict:
+    """(a)'s readings: "train", the largest relative gap of a loss or a
+    parameter leaf; "decode", of a decode step's logits."""
+    losses = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+    params = max(mesh_rel_l2(a, b) for a, b in zip(run["params"], ref["params"]))
+    logits = max(mesh_rel_l2(a, b) for a, b in zip(run["logits"], ref["logits"]))
+    return {"losses": losses, "params": params, "train": max(losses, params),
+            "decode": logits}
+
+
+def parity_cpu(mesh, payload: dict) -> dict:
+    """(a) on the CPU ranks: rank 0 writes the run for the card's ranks."""
+    import torch.distributed as dist
+
+    run = parity_full(mesh, payload["seed"])
+    if dist.get_rank() == 0:
+        tmp = payload["parity_file"] + ".tmp"
+        torch.save({k: run[k] for k in ("losses", "params", "logits")}, tmp)
+        os.replace(tmp, payload["parity_file"])
+    return {"losses": run["losses"]}
+
+
+def parity_card(mesh, payload: dict) -> dict:
+    """(a) on the card: clean and with each planted fault, every run's gap
+    to the CPU ranks' run (waited for)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    runs = {"clean": parity_full(mesh, payload["seed"])}
+    for fault in SHARDED_FAULTS:
+        with planted(fault):
+            if fault == "cache_row_wrong_shard":   # the clean training, a faulty decode
+                runs[fault] = {**runs["clean"], "logits": parity_decode(mesh, runs["clean"])}
+            else:
+                runs[fault] = parity_full(mesh, payload["seed"])
+    card_s = time.perf_counter() - t0
+    if dist.get_rank() != 0:
+        return {}
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    while not os.path.exists(payload["parity_file"]):
+        check(time.monotonic() < deadline, "(a): the CPU ranks' run never arrived")
+        time.sleep(0.5)
+    ref = torch.load(payload["parity_file"], weights_only=False)
+    gaps = {k: parity_gap(r, ref) for k, r in runs.items()}
+    return {"seed": payload["seed"], "layers": PARITY_LAYERS,
+            "tokens": PARITY_BATCH * PARITY_SEQ, "steps": PARITY_STEPS,
+            "losses": runs["clean"]["losses"], "cpu_losses": ref["losses"],
+            "clean": gaps["clean"], "faults": {f: gaps[f] for f in SHARDED_FAULTS},
+            "limit": SHARDED_REL_LIMIT, "card_runs_s": card_s}
+
+
+def experts_case(mesh, payload: dict) -> dict:
+    """(b): `moe_ffn_sharded` at full width and capacity 1.25 on this rank's
+    tokens and experts against `moe_ffn_sharded_plain` over the whole
+    tensors, both on the card."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.specs import MeshAxes, local_block
+
+    axes = MeshAxes.for_mesh(mesh)
+    cfg = get_config(SHARDED_ARCH)
+    moe_cfg = cfg.moe
+    n_fsdp, n_tp = mesh.axis_size(axes.fsdp), mesh.shape[axes.tp]
+    g = torch.Generator(device=mesh.device).manual_seed(SEED)
+    dev, d, e, fe = mesh.device, cfg.d_model, moe_cfg.n_experts, moe_cfg.d_ff_expert
+    # one direction shared by every token, as real activations share one:
+    # it favours some experts, which then overflow their capacity
+    x = (torch.randn(EXPERT_TOKENS_PER_SHARD * n_fsdp, d, generator=g, device=dev)
+         + torch.randn(d, generator=g, device=dev))
+    router = torch.randn(d, e, generator=g, device=dev) * 0.02
+    wg, wu = (torch.randn(e, d, fe, generator=g, device=dev) / d ** 0.5 for _ in range(2))
+    wd = torch.randn(e, fe, d, generator=g, device=dev) / fe ** 0.5
+    with torch.no_grad():
+        ex = [local_block(w, mesh, (axes.tp, None, None)) for w in (wg, wu, wd)]
+        x_loc = local_block(x, mesh, (axes.fsdp, None))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux, dropped = lm_moe.moe_ffn_sharded(x_loc, router, *ex, moe_cfg, mesh, axes.fsdp,
+                                                 axes.tp, with_dropped=True)
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        y = C.all_gather(y, mesh, axes.fsdp, 0)
+        t0 = time.perf_counter()
+        py, paux, pdropped = lm_moe.moe_ffn_sharded_plain(x, router, wg, wu, wd, moe_cfg, n_fsdp,
+                                                          n_tp, with_dropped=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((y - py).abs().max())
+    return {"tokens_per_shard": EXPERT_TOKENS_PER_SHARD, "capacity_factor": moe_cfg.capacity_factor,
+            "dropped_pairs": int(dropped), "plain_dropped_pairs": int(pdropped),
+            "pairs": x.shape[0] * moe_cfg.top_k, "max_abs_err": err,
+            "bitwise": bool(torch.equal(y, py)), "aux": float(aux), "plain_aux": float(paux),
+            "sharded_ms": sharded_ms, "plain_ms": plain_ms}
+
+
+def bf16_case(mesh, payload: dict) -> dict:
+    """(c): bf16 AdamW training at full width with `BF16_LAYERS` layers on
+    the stream; the state saved from the mesh for (e)."""
+    from repro_torch.sharding import collectives as C
+
+    cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=BF16_LAYERS)
+    opt = OptConfig(lr=BF16_LR)
+    torch.cuda.reset_peak_memory_stats()
+    shs = train_lib.train_state_shardings(cfg, opt, mesh)
+    state = train_lib.make_train_state(torch.Generator(device=mesh.device).manual_seed(SEED),
+                                       cfg, opt, shardings=shs)
+    fitted = all(tuple(t.shape) == sh.local_shape
+                 for t, sh in zip(tree_leaves(state), tree_leaves(shs)))
+    stream = TokenStream(vocab=cfg.vocab, batch=BF16_BATCH, seq_len=BF16_SEQ, seed=SEED)
+    step = train_lib.make_train_step(cfg, opt, grad_shardings=shs.params)
+    losses, step_ms, per_step = [], [], []
+    batch = stream.batch_at(0)
+    for _ in range(BF16_STEPS):
+        C.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with C.STATS.timed():
+            state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(C.STATS.snapshot())
+    kinds = sorted({k for s in per_step[1:] for k in s})
+    collectives = {k: {f: statistics.mean(s.get(k, {}).get(f, 0) for s in per_step[1:])
+                       for f in ("calls", "bytes", "ms")} for k in kinds}
+    on_card = all_on_card(state)
+    t0 = time.perf_counter()
+    train_ckpt.save(payload["ckpt_dir"], BF16_STEPS, state, shardings=shs)
+    save_s = time.perf_counter() - t0
+    return {"layers": BF16_LAYERS, "tokens_per_step": BF16_BATCH * BF16_SEQ,
+            "parameters": sum(math.prod(sh.shape) for sh in tree_leaves(shs.params)),
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_median": statistics.median(step_ms[1:]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "local_state_gb": state_bytes(state) / 1e9, "all_on_card": on_card,
+            "fitted_shapes": fitted, "collectives_per_step": collectives, "save_s": save_s}
+
+
+def decode_greedy(model, prompt: torch.Tensor) -> tuple:
+    logits, cache = model.prefill(prompt, max_len=MESH_DECODE_MAX_LEN)
+    tokens, steps = [], [logits]
+    t0 = time.perf_counter()
+    for _ in range(MESH_DECODE_STEPS):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        tokens.append(tok)
+        logits, cache = model.decode_step(cache, tok)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / MESH_DECODE_STEPS
+    return torch.cat(tokens, 1), torch.stack(steps), ms
+
+
+def decode_case(mesh, payload: dict) -> dict:
+    """(d): greedy decode on the mesh against one process's on the card
+    (rank 0), from the same draw."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.params import local_tree, param_shardings
+
+    out = {}
+    for arch, layers in MESH_DECODE_LAYERS.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        whole = init_params(torch.Generator(device=mesh.device).manual_seed(SEED), cfg,
+                            mesh.device)
+        model = CausalLM(cfg, local_tree(whole, param_shardings(cfg, mesh)), mesh=mesh)
+        if dist.get_rank() != 0:
+            del whole
+        prompt = torch.as_tensor(np.random.RandomState(SEED).randint(
+            0, cfg.vocab, (MESH_DECODE_BATCH, MESH_DECODE_PROMPT)).astype(np.int32))
+        tokens, logits, mesh_ms = decode_greedy(model, prompt)
+        del model
+        if dist.get_rank() == 0:
+            one = CausalLM(cfg, whole, device=mesh.device)
+            del whole
+            want_tokens, want_logits, one_ms = decode_greedy(one, prompt)
+            del one
+            out[arch.replace("-", "_").replace(".", "_")] = {
+                "layers": layers, "token_mismatches": int((tokens != want_tokens).sum()),
+                "max_rel_l2": max(mesh_rel_l2(a, b) for a, b in zip(logits, want_logits)),
+                "limit": SHARDED_REL_LIMIT["decode"], "mesh_decode_ms_per_token": mesh_ms,
+                "one_process_decode_ms_per_token": one_ms}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def restore_case(mesh, payload: dict) -> dict:
+    """(e) on a smaller mesh: (c)'s checkpoint restored as this mesh's
+    blocks, gathered whole, each leaf against its file, bitwise."""
+    from repro_torch.sharding import collectives as C
+
+    cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=BF16_LAYERS)
+    opt = OptConfig(lr=BF16_LR)
+    shs = train_lib.train_state_shardings(cfg, opt, mesh)
+    t0 = time.perf_counter()
+    state, step = train_ckpt.restore(payload["ckpt_dir"], train_lib.train_state_shapes(cfg, opt),
+                                     shardings=shs)
+    restore_s = time.perf_counter() - t0
+    fitted = all(tuple(t.shape) == sh.local_shape and t.device.type == "cuda"
+                 for t, sh in zip(tree_leaves(state), tree_leaves(shs)))
+    whole = C.gather_tree(state, shs)
+    return {"step": step, "fitted_shapes": fitted, "restore_s": restore_s,
+            "bitwise_equal": ckpt_equal(payload["ckpt_dir"], step, whole)}
+
+
+def ckpt_equal(ckpt_dir: str, step: int, tree) -> bool:
+    """Every leaf of ``tree`` bitwise its checkpoint file's."""
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "MANIFEST.json")) as f:
+        leaves = json.load(f)["leaves"]
+    flat = train_ckpt._flatten(tree)
+    same = sorted(flat) == sorted(leaves)
+    for k, meta in leaves.items():
+        want = train_ckpt._read_leaf(os.path.join(d, meta["file"]), meta["dtype"])
+        same &= bool(torch.equal(flat[k], want.to(flat[k].device)))
+    return same
+
+
+SHARDED_CASES = {"gloo": lambda mesh, payload: gloo_on_cuda(mesh), "experts": experts_case,
+                 "decode": decode_case, "bf16": bf16_case, "parity": parity_card,
+                 "parity_cpu": parity_cpu, "restore": restore_case}
+
+
+def sharded_rank(payload: dict, device: torch.device) -> dict:
+    """One rank of the sharded phase: its mesh, then each case of the
+    payload in order, the card's memory handed back between."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(*payload["mesh"], device=device)
+    out = {"coords": mesh.coords}
+    circuit_eval.reset_launch_counts()
+    for case in payload["cases"]:
+        t0 = time.perf_counter()
+        out[case] = SHARDED_CASES[case](mesh, payload)
+        out[case + "_s"] = time.perf_counter() - t0
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    out["launches"] = launch_counts()   # this rank's, over its cases
+    return out
+
+
+def sharded_groups(cases: list, seed: int, tmp: str) -> tuple:
+    """The card's ranks (``cases``) and, when (a) runs, the CPU's ranks
+    started together: → (card ranks, CPU ranks or None)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    common = {"mesh": SHARDED_MESH, "seed": seed, "parity_file": os.path.join(tmp, "parity.pt"),
+              "ckpt_dir": os.path.join(tmp, "ckpt")}
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        cpu = None
+        if "parity" in cases:
+            cpu = pool.submit(spawn_ranks, "chip_smoke:sharded_rank",
+                              {**common, "cases": ["parity_cpu"]}, world, device="cpu",
+                              timeout_s=SHARDED_TIMEOUT_S)
+        card = pool.submit(spawn_ranks, "chip_smoke:sharded_rank", {**common, "cases": cases},
+                           world, device=DEVICE, timeout_s=SHARDED_TIMEOUT_S)
+        return card.result(), None if cpu is None else cpu.result()
+
+
+def check_parity(r: dict) -> None:
+    for reading, limit in r["limit"].items():
+        check(limit is not None, "(a): no limit is set (--sharded-calibrate)")
+        check(r["clean"][reading] <= limit, f"(a): the card's sharded {reading} differs from the "
+                                            f"CPU's by {r['clean'][reading]} > {limit}")
+    for fault, reading in SHARDED_FAULTS.items():
+        gap, limit = r["faults"][fault][reading], r["limit"][reading]
+        check(gap > limit, f"(a): the planted fault {fault} moves the {reading} reading by "
+                           f"{gap}, within the limit {limit}")
+
+
+def phase_sharded() -> dict:
+    """Sharded training and decode on a 2 x 2 mesh of gloo ranks sharing
+    the card (phase 14 of the module doc).  No kernel of the table runs on
+    it."""
+    t_phase = time.perf_counter()
+    circuit_eval.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
+        card, cpu = sharded_groups(["gloo", "experts", "decode", "bf16", "parity"], SEED, tmp)
+        small = spawn_ranks("chip_smoke:sharded_rank",
+                            {"mesh": (1, 2), "cases": ["restore"],
+                             "ckpt_dir": os.path.join(tmp, "ckpt")}, 2, device=DEVICE,
+                            timeout_s=SHARDED_TIMEOUT_S)
+        cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=BF16_LAYERS)
+        t0 = time.perf_counter()
+        one, step = train_ckpt.restore(os.path.join(tmp, "ckpt"),
+                                       train_lib.train_state_shapes(cfg, OptConfig()),
+                                       device=DEVICE)
+        one_s = time.perf_counter() - t0
+        one_equal = ckpt_equal(os.path.join(tmp, "ckpt"), step, one)
+        del one
+    r0 = card[0]
+    bf16 = r0["bf16"]
+    out = {"phase": "sharded", "card": gpu_line(), "mesh": "x".join(map(str, SHARDED_MESH)),
+           "ranks": len(card), "transport": "gloo",
+           "boot_s": [r["boot_s"] for r in card], "gloo_on_cuda": r0["gloo"],
+           "parity": r0["parity"], "experts": r0["experts"],
+           "bf16_training": {**bf16, "peak_mem_gb": [r["bf16"]["peak_mem_gb"] for r in card],
+                             "all_on_card": all(r["bf16"]["all_on_card"] for r in card),
+                             "fitted_shapes": all(r["bf16"]["fitted_shapes"] for r in card)},
+           "decode": r0["decode"],
+           "elastic": {"saved_on": "2x2", "mesh_1x2": small[0]["restore"],
+                       "one_process": {"step": step, "bitwise_equal": one_equal,
+                                       "restore_s": one_s}},
+           "case_s": {k[:-2]: v for k, v in r0.items() if k.endswith("_s") and k != "boot_s"},
+           "cpu_ranks_parity_s": cpu[0]["parity_cpu_s"],
+           # every process of the phase: the card's ranks, the 1 x 2 ranks
+           # and this process's restore
+           "launches": {k: v + sum(r["launches"][k] for r in card + small)
+                        for k, v in launch_counts().items()},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    check(all(out["gloo_on_cuda"].values()), f"gloo on CUDA tensors: {out['gloo_on_cuda']}")
+    check_parity(out["parity"])
+    ex = out["experts"]
+    check(ex["dropped_pairs"] == ex["plain_dropped_pairs"] and ex["dropped_pairs"] > 0,
+          f"(b): dropped pairs {ex['dropped_pairs']} against {ex['plain_dropped_pairs']}")
+    check(ex["max_abs_err"] <= EXPERT_ATOL, f"(b): the sharded experts differ by "
+                                            f"{ex['max_abs_err']}")
+    b = out["bf16_training"]
+    check(all(math.isfinite(x) for x in b["losses"]) and b["losses"][-1] < b["losses"][0],
+          f"(c): losses {b['losses']}")
+    check(b["all_on_card"] and b["fitted_shapes"], "(c): a rank's state is off the card or "
+                                                   "not its fitted block")
+    for name, r in out["decode"].items():
+        check(r["token_mismatches"] == 0, f"(d) {name}: {r['token_mismatches']} tokens differ")
+        check(r["max_rel_l2"] <= r["limit"], f"(d) {name}: logits differ by "
+                                             f"{r['max_rel_l2']} > {r['limit']}")
+    e = out["elastic"]
+    check(e["mesh_1x2"]["bitwise_equal"] and e["mesh_1x2"]["fitted_shapes"]
+          and e["one_process"]["bitwise_equal"], f"(e): {e}")
+    check(not any(out["launches"].values()),
+          f"the sharded path launched a circuit kernel: {out['launches']}")
+    return out
+
+
+def sharded_calibrate(seeds: int) -> int:
+    """``--sharded-calibrate N``: (a) over N seeds of weights and batch,
+    clean and with each planted fault (the readings `SHARDED_REL_LIMIT`
+    is set from), then (d)'s gaps once; one line per run, then the
+    largest clean gap and each fault's smallest."""
+    runs = []
+    for seed in range(seeds):
+        with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
+            card, _ = sharded_groups(["parity"], seed, tmp)
+        runs.append(card[0]["parity"])
+        emit({"phase": "sharded_calibrate_run", **runs[-1]})
+    with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
+        card, _ = sharded_groups(["decode"], SEED, tmp)
+    emit({"phase": "sharded_calibrate_decode", **card[0]["decode"]})
+    emit({"phase": "sharded_calibrate", "card": gpu_line(), "seeds": seeds,
+          "train_clean_max": max(run["clean"]["train"] for run in runs),
+          "decode_clean_max": max([run["clean"]["decode"] for run in runs]
+                                  + [r["max_rel_l2"] for r in card[0]["decode"].values()]),
+          **{f"{f}_{r}_min": min(run["faults"][f][r] for run in runs)
+             for f, r in SHARDED_FAULTS.items()}})
+    return 0
+
+
 # -- A/B against another tree ----------------------------------------------
 def run_summary(text: str) -> dict:
     """Each kernel's ``ms`` and uncompacted ms, the one-shard ticks'
@@ -3899,6 +4513,12 @@ def main() -> int:
         return lm_calibrate(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--train-calibrate":
         return train_calibrate(int(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-calibrate":
+        return sharded_calibrate(int(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--evolve-rollbacks":
+        phase_env()
+        phase_evolve(int(sys.argv[2]))
+        return 0
     t_start = time.perf_counter()
     phase_env()
     checks = phase_kernel_checks()
@@ -3923,6 +4543,7 @@ def main() -> int:
     phase_mlp_profile(baselines)
     phase_lm()
     phase_train()
+    phase_sharded()
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     check(all(v > 0 for v in population_launches.values()),

@@ -4,21 +4,43 @@ initialisation (PyTorch port of the reference's ``blocks.py``).
 Parameters are dicts of tensors **stacked over layers** (leading L dim),
 the reference's layout; `models/lm.py` loops over the layers in Python.
 Leaves the reference keeps in float32 whatever ``cfg.dtype`` is
-(`F32_LEAVES`) are made in float32 here too.  The reference's sharding
-constraints, its sharded cache write and its sharded experts
-(``moe_ffn_sharded``) do nothing on one card: the cache write here is a
-plain index write, in place, and experts always go through `moe.moe_ffn`.
+(`F32_LEAVES`) are made in float32 here too.
+
+Under a mesh (`sharding.specs.use_mesh_axes`; the partition is written
+out in `sharding/specs.py`) the bodies see one layer's gathered
+parameters and this rank's batch rows:
+
+  * `ffn_sublayer` takes the reference's branch: `moe.moe_ffn_sharded`
+    (tokens over fsdp, experts over tp) when the whole batch's tokens
+    divide over fsdp and tp divides the experts, else `moe.moe_ffn` on
+    the whole batch.  Rows split over fsdp always divide; a batch held
+    whole on every rank (`specs.batch_split`) is cut to the rank's
+    tokens for the sharded branch and gathered after it;
+  * `_cache_write` writes a row only on the rank whose slice of a
+    sequence-split cache holds the position (the reference's
+    clamp-and-mask, with the position on the host);
+  * `decode_attention_split` is the split softmax over a sequence-split
+    cache: each rank's max, sum and weighted values, combined over tp;
+  * `rwkv_block` runs the wkv of the rank's own heads (``heads``) and
+    gathers their outputs (``gather``).
+
+On one device the cache write is a plain index write, in place, and
+experts go through `moe.moe_ffn`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import decode_attention, gqa_attention
+from repro_torch.models.attention import NEG_INF, decode_attention, gqa_attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import act_fn, dense_init, rms_norm
 from repro_torch.models.rope import apply_mrope, apply_rope
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.specs import batch_split, current_mesh, local_block
 
 # the leaves the reference initialises in float32 for every cfg.dtype
 F32_LEAVES = frozenset({"router", "w0", "wlB", "u", "ln_x", "m_Alog", "m_dtb"})
@@ -129,8 +151,31 @@ def ffn_sublayer(x: torch.Tensor, lp: dict, cfg: ModelConfig):
     if cfg.moe is None:
         return x + _dense_ffn(h, lp, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
     b, s, d = h.shape
-    out, aux = moe_lib.moe_ffn(h.reshape(b * s, d), lp["router"], lp["e_wg"], lp["e_wu"],
-                               lp["e_wd"], cfg.moe)
+    flat = h.reshape(b * s, d)
+    experts = (lp["router"], lp["e_wg"], lp["e_wu"], lp["e_wd"], cfg.moe)
+    ctx = current_mesh()
+    if ctx is None:
+        out, aux = moe_lib.moe_ffn(flat, *experts)
+    else:
+        # the reference's condition on the whole batch's tokens; rows
+        # split over fsdp always divide
+        mesh, axes = ctx
+        split = batch_split()
+        experts_split = cfg.moe.n_experts % mesh.shape[axes.tp] == 0
+        if experts_split and (split or (b * s) % mesh.axis_size(axes.fsdp) == 0):
+            x_loc = flat if split else local_block(flat, mesh, (axes.fsdp, None))
+            out, aux = moe_lib.moe_ffn_sharded(x_loc, *experts, mesh, axes.fsdp, axes.tp)
+            if not split:
+                out = C.all_gather(out, mesh, axes.fsdp, 0)
+        else:
+            # the reference's moe_ffn over the whole batch, with every expert
+            whole = C.all_gather(flat, mesh, axes.fsdp, 0) if split else flat
+            if experts_split:
+                experts = (lp["router"], *(C.all_gather(lp[k], mesh, axes.tp, 0)
+                                           for k in ("e_wg", "e_wu", "e_wd")), cfg.moe)
+            out, aux = moe_lib.moe_ffn(whole, *experts)
+            if split:
+                out = local_block(out, mesh, (axes.fsdp, None))
     out = out.reshape(b, s, d)
     if cfg.moe.dense_residual:
         out = out + _dense_ffn(h, lp, cfg)
@@ -184,12 +229,15 @@ def attn_block(x, lp, cfg: ModelConfig, positions, *, window, collect_kv=False):
     return x, kv, aux
 
 
-def rwkv_block(x, lp, cfg: ModelConfig, state: ssm_lib.RWKVState, chunk: int = 16):
+def rwkv_block(x, lp, cfg: ModelConfig, state: ssm_lib.RWKVState, chunk: int = 16,
+               heads=None, gather=None):
     """RWKV6 time mix then channel mix, each pre-norm with residual.
-    → (x, the updated state)."""
+    → (x, the updated state).  ``heads``/``gather``: the wkv of a block of
+    heads only (`ssm.rwkv6_time_mix`)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     mix, state = ssm_lib.rwkv6_time_mix(h, state, lp, cfg.d_model // cfg.ssm.head_dim,
-                                        cfg.ssm.head_dim, chunk=chunk)
+                                        cfg.ssm.head_dim, chunk=chunk, heads=heads,
+                                        gather=gather)
     x = x + mix
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     cm, state = ssm_lib.rwkv6_channel_mix(h2, state, lp)
@@ -217,24 +265,66 @@ def hybrid_block(x, lp, cfg: ModelConfig, positions, mamba_state: ssm_lib.MambaS
 # Decode (single-token) attention sublayer against a cache
 # ---------------------------------------------------------------------------
 
-def _cache_write(cache: torch.Tensor, new_row: torch.Tensor, write_pos: int) -> torch.Tensor:
+def _cache_write(cache: torch.Tensor, new_row: torch.Tensor, write_pos: int,
+                 offset: int = 0) -> torch.Tensor:
     """Write one token row (B, 1, Hkv, hd) into a (B, T, Hkv, hd) cache, in
-    place."""
-    cache[:, write_pos] = new_row[:, 0]
+    place.  ``offset``: the first position of this rank's slice of a
+    sequence-split cache; a rank whose slice does not hold ``write_pos``
+    leaves its slice as it was."""
+    slot = write_pos - offset
+    if 0 <= slot < cache.shape[1]:
+        cache[:, slot] = new_row[:, 0]
     return cache
 
 
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos: int, *, offset: int, total: int, mesh, axes,
+                           window: "int | None" = None, ring: bool = False) -> torch.Tensor:
+    """`attention.decode_attention` over a cache whose sequence is split
+    over tp: this rank holds slots ``[offset, offset + T_loc)`` of
+    ``total``.  Each rank masks its slots as the whole cache's, takes its
+    scores' max, the max over tp, its sum of exp(s − max), the sum over tp,
+    and the normalised weights times its values, summed over tp."""
+    b, t, hkv, hd = k_cache.shape
+    hq = q.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, 1, hkv, g, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k_cache).float()
+    s = s * (1.0 / math.sqrt(hd))
+    slots = torch.arange(offset, offset + t, device=q.device)
+    if ring:
+        valid = (slots <= pos) | (pos >= total)
+    else:
+        valid = slots <= pos
+        if window is not None:
+            valid &= slots > pos - window
+    s = torch.where(valid, s, NEG_INF)
+    m = C.all_reduce_max(s.amax(dim=-1, keepdim=True), mesh, axes.tp)
+    e = torch.exp(s - m)
+    p = e / C.all_reduce(e.sum(dim=-1, keepdim=True), mesh, axes.tp)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p.to(v_cache.dtype), v_cache)
+    return C.all_reduce(o, mesh, axes.tp).reshape(b, 1, hq, hd)
+
+
 def attn_decode_sublayer(x, lp, cfg: ModelConfig, k_cache, v_cache, pos: int,
-                         positions, *, window=None, ring=False, slot=None):
+                         positions, *, window=None, ring=False, slot=None, split=None):
     """x (B,1,D); k_cache/v_cache (B,T,Hkv,hd), written in place at
-    ``slot`` (default ``pos``).  Returns x and the two caches."""
+    ``slot`` (default ``pos``).  ``split``: ``(offset, total)`` of this
+    rank's slice of a sequence-split cache under the ambient mesh.
+    Returns x and the two caches."""
     b = x.shape[0]
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(h, lp, cfg)
     q, k = _apply_pos(q, k, positions, cfg)
     write = pos if slot is None else slot
-    k_cache = _cache_write(k_cache, k, write)
-    v_cache = _cache_write(v_cache, v, write)
-    o = decode_attention(q, k_cache, v_cache, pos, window=window, ring=ring)
+    offset = 0 if split is None else split[0]
+    k_cache = _cache_write(k_cache, k, write, offset)
+    v_cache = _cache_write(v_cache, v, write, offset)
+    if split is None:
+        o = decode_attention(q, k_cache, v_cache, pos, window=window, ring=ring)
+    else:
+        mesh, axes = current_mesh()
+        o = decode_attention_split(q, k_cache, v_cache, pos, offset=offset, total=split[1],
+                                   mesh=mesh, axes=axes, window=window, ring=ring)
     x = x + o.reshape(b, 1, cfg.q_dim) @ lp["wo"]
     return x, k_cache, v_cache

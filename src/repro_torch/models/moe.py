@@ -23,8 +23,16 @@ The reference adds them one by one into the output (``.at[].add``); the
 two orders agree within the tests' tolerance.
 
 The Switch aux loss ``E · Σ_e f_e · p̄_e`` is returned beside the output.
-The reference's ``moe_ffn_sharded`` (experts over a mesh axis) waits for
-the sharding slice, with `sharding/`.
+
+On a mesh (`sharding/`), `moe_ffn_sharded` is the reference's
+``shard_map`` MoE: tokens split over fsdp, experts over tp; rank (d, m)
+dispatches its data shard's tokens to its own experts only, and the
+combine is one all-reduce over tp.  Capacity drops are per (expert × data
+shard): ``C = max(int(ceil(T_loc·k / E) · cf), 1)`` from the shard's
+T_loc tokens, and the aux loss is the mean over data shards of each
+shard's aux (``pmean``), not the global aux.  `moe_ffn_sharded_plain` runs
+the same per-shard semantics in one process over the unsharded tensors:
+what the distributed version is held to.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import MoEConfig
+from repro_torch.sharding import collectives as C
 
 
 class Dispatch(NamedTuple):
@@ -115,3 +124,96 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, e_wg: torch.Tensor,
         0, plan.flat_e, ones) / (t * k)
     aux = e * torch.sum(f_e * plan.probs.mean(dim=0))
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Explicit-SPMD MoE on a mesh
+# ---------------------------------------------------------------------------
+
+def _local_dispatch_compute(x_loc: torch.Tensor, router_w: torch.Tensor, e_wg: torch.Tensor,
+                            e_wu: torch.Tensor, e_wd: torch.Tensor, cfg: MoEConfig, m_idx: int,
+                            e_loc: int):
+    """One rank's part: its tokens ``x_loc`` (T_loc, D) routed over all E
+    experts (capacity from T_loc), the pairs of experts ``[m_idx·e_loc,
+    (m_idx + 1)·e_loc)`` dispatched to the local expert weights (e_loc, …).
+    → (partial output (T_loc, D), the shard's aux, the local experts'
+    dropped pairs (a 0-d int tensor))."""
+    t, d = x_loc.shape
+    e, k = cfg.n_experts, cfg.top_k
+    plan = route(x_loc, router_w, cfg)
+    # a pair's rank within its expert is the same whether the other
+    # experts' pairs are counted or not (a stable sort by expert)
+    local_e = plan.flat_e - m_idx * e_loc
+    mine = (local_e >= 0) & (local_e < e_loc)
+    write_e = torch.where(mine, local_e, e_loc)   # other experts' pairs → a spare row
+    slot = torch.clamp(plan.rank, max=plan.cap)   # dropped pairs → a spare slot
+    buf = torch.zeros((e_loc + 1, plan.cap + 1, d), dtype=x_loc.dtype, device=x_loc.device)
+    buf[write_e, slot] = x_loc[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf = buf[:e_loc, :plan.cap]
+
+    h = F.silu(torch.bmm(buf, e_wg.to(x_loc.dtype))) * torch.bmm(buf, e_wu.to(x_loc.dtype))
+    y_e = torch.bmm(h, e_wd.to(x_loc.dtype))                   # (e_loc, C, D)
+
+    kept = mine & plan.kept
+    gathered = y_e[torch.clamp(write_e, max=e_loc - 1), torch.clamp(plan.rank, max=plan.cap - 1)]
+    gathered = torch.where(kept[:, None], gathered, 0)
+    w = plan.gates.reshape(-1).to(x_loc.dtype)
+    y = (gathered * w[:, None]).reshape(t, k, d).sum(dim=1)
+
+    ones = torch.ones(t * k, dtype=torch.float32, device=x_loc.device)
+    f_e = torch.zeros(e, dtype=torch.float32, device=x_loc.device).scatter_add_(
+        0, plan.flat_e, ones) / (t * k)
+    aux = e * torch.sum(f_e * plan.probs.mean(dim=0))
+    return y, aux, (mine & ~plan.kept).sum()
+
+
+def moe_ffn_sharded(x_loc: torch.Tensor, router_w: torch.Tensor, e_wg: torch.Tensor,
+                    e_wu: torch.Tensor, e_wd: torch.Tensor, cfg: MoEConfig, mesh,
+                    fsdp: tuple, tp: str, with_dropped: bool = False):
+    """This rank's part of the reference's ``moe_ffn_sharded`` (module doc):
+    ``x_loc`` (T_loc, D) the tokens of its data shard, ``router_w`` whole,
+    ``e_w*`` its tp rank's experts (E/tp, …), whole over fsdp.
+    → (output (T_loc, D), the aux mean over data shards), and with
+    ``with_dropped`` the mesh's dropped pairs (a 0-d int tensor, the same
+    on every rank).  Gradients flow through the two collectives."""
+    e_loc = cfg.n_experts // mesh.shape[tp]
+    if e_wg.shape[0] != e_loc:
+        raise ValueError(f"{e_wg.shape[0]} local experts; {cfg.n_experts} over "
+                         f"{mesh.shape[tp]} tp ranks gives {e_loc}")
+    y, aux, dropped = _local_dispatch_compute(x_loc, router_w, e_wg, e_wu, e_wd, cfg,
+                                              mesh.index(tp), e_loc)
+    y = C.all_reduce(y, mesh, tp)
+    aux = C.pmean(aux, mesh, fsdp)
+    if not with_dropped:
+        return y, aux
+    return y, aux, C._raw_all_reduce(dropped, mesh, tuple(mesh.axis_names))
+
+
+def moe_ffn_sharded_plain(x: torch.Tensor, router_w: torch.Tensor, e_wg: torch.Tensor,
+                          e_wu: torch.Tensor, e_wd: torch.Tensor, cfg: MoEConfig,
+                          n_fsdp: int, n_tp: int, with_dropped: bool = False):
+    """`moe_ffn_sharded`'s semantics on ``n_fsdp`` × ``n_tp`` ranks, run in
+    one process over the whole tokens (T, D) and experts (E, …): each
+    data shard's tokens through each tp rank's experts, the partial
+    outputs summed over tp, the shards' aux averaged.  → (output (T, D),
+    aux) and with ``with_dropped`` the dropped pairs."""
+    t = x.shape[0]
+    e_loc = cfg.n_experts // n_tp
+    if t % n_fsdp or cfg.n_experts % n_tp:
+        raise ValueError(f"{t} tokens over {n_fsdp} shards, {cfg.n_experts} experts "
+                         f"over {n_tp}")
+    t_loc = t // n_fsdp
+    ys, auxes, dropped = [], [], 0
+    for di in range(n_fsdp):
+        xd = x[di * t_loc:(di + 1) * t_loc]
+        y = 0
+        for m in range(n_tp):
+            ex = slice(m * e_loc, (m + 1) * e_loc)
+            part, aux, drop = _local_dispatch_compute(xd, router_w, e_wg[ex], e_wu[ex],
+                                                      e_wd[ex], cfg, m, e_loc)
+            y = y + part
+            dropped = dropped + drop
+        ys.append(y)
+        auxes.append(aux)
+    out = (torch.cat(ys), torch.stack(auxes).mean())
+    return (*out, dropped) if with_dropped else out

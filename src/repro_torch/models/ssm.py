@@ -113,22 +113,33 @@ def rwkv6_chunked(r, k, v, logw, u, s0, chunk: int = 16):
 
 
 def rwkv6_time_mix(x, state: RWKVState, p, n_heads: int, head_dim: int,
-                   chunk: int = 16, eps: float = 1e-5):
+                   chunk: int = 16, eps: float = 1e-5, heads: "tuple[int, int] | None" = None,
+                   gather=None):
     """(B, S, D) → (B, S, D) and the updated state; ``p`` the layer's
     parameters.  S is padded to a multiple of ``chunk`` with k = v = r = 0
-    and logw = 0 (decay 1), which leaves the carried state unchanged."""
+    and logw = 0 (decay 1), which leaves the carried state unchanged.
+
+    ``heads=(h0, h1)`` runs the wkv of those heads only, ``state.s`` being
+    theirs (a mesh splits the state by heads over tp); ``gather`` then
+    takes their normed outputs (B, S, (h1 − h0)·hd) to all D channels
+    before the gate and the output projection."""
     b, s_len, d = x.shape
     xs = _token_shift(x, state.last_x)
     r, k, v, g, logw = _rwkv_project(x, xs, p)
+    h0, h1 = heads if heads is not None else (0, n_heads)
+    cols = slice(h0 * head_dim, h1 * head_dim)
+    if heads is not None:
+        r, k, v, logw = (t[..., cols] for t in (r, k, v, logw))
+    n_heads = h1 - h0
     pad = (-s_len) % chunk
     if pad:
         r, k, v, logw = (F.pad(t, (0, 0, 0, pad)) for t in (r, k, v, logw))
     sp = s_len + pad
 
-    def heads(t):
+    def split(t):
         return t.reshape(b, sp, n_heads, head_dim)
 
-    y, s_f = rwkv6_chunked(heads(r), heads(k), heads(v), heads(logw).float(), p["u"],
+    y, s_f = rwkv6_chunked(split(r), split(k), split(v), split(logw).float(), p["u"][h0:h1],
                            state.s, chunk=chunk)
     y = y[:, :s_len]
     # per-head group norm (population variance), then output gate and projection
@@ -136,7 +147,9 @@ def rwkv6_time_mix(x, state: RWKVState, p, n_heads: int, head_dim: int,
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, correction=0)
     yn = (yf - mu) * torch.rsqrt(var + eps)
-    yn = yn.reshape(b, s_len, d) * p["ln_x"].float()
+    yn = yn.reshape(b, s_len, n_heads * head_dim) * p["ln_x"][cols].float()
+    if gather is not None:
+        yn = gather(yn)
     out = (yn.to(x.dtype) * F.silu(g)) @ p["wo_t"].to(x.dtype)
     return out, RWKVState(s=s_f, last_x=x[:, -1, :], last_xc=state.last_xc)
 

@@ -64,6 +64,7 @@ from repro_torch.serve.planning import (
     PlanCompiler,
     ensemble_vote,
 )
+from repro_torch.sharding.specs import population_mesh
 
 _log = logging.getLogger("repro_torch.serve.aot")
 
@@ -175,10 +176,9 @@ class CircuitServer:
         return self.tracer.span(f"backend.{kind}", cat="kernel", **meta)
 
     def device_for(self, shard: int) -> torch.device:
-        """The device shard ``shard`` launches on."""
-        if self.device.type == "cuda" and self.device.index is None:
-            return torch.device("cuda", shard % torch.cuda.device_count())
-        return self.device
+        """The device shard ``shard`` launches on (`population_mesh`)."""
+        devices = population_mesh(shard + 1, self.device)
+        return devices[shard % len(devices)]
 
     def reset_stats(self) -> None:
         """Fresh stats window (keeps the resolved backend tag)."""

@@ -17,6 +17,11 @@ Guarantees:
     `latest_step` falls back past a LATEST that points ahead;
   * restore onto any device — leaves are loaded full-shape on the host and
     moved to the device the caller names;
+  * elastic restore — `save(..., shardings=)` on a mesh gathers every
+    leaf whole and rank 0 writes today's files; `restore(...,
+    shardings=)` onto any mesh reads each rank's block of each file
+    (memory-mapped), so a 2 × 4 checkpoint restores onto 2 × 2, onto one
+    process, or into the reference, unchanged;
   * async — `save(..., blocking=False)` snapshots to host memory and writes
     in a background thread, keeping the train loop running.
 
@@ -98,15 +103,32 @@ def _write_leaf(path: str, arr: np.ndarray, dtype: str) -> None:
         f.write(np.ascontiguousarray(arr).tobytes())
 
 
-def _read_leaf(path: str, dtype: str) -> torch.Tensor:
-    arr = np.load(path)
+def _read_leaf(path: str, dtype: str, block: "tuple | None" = None) -> torch.Tensor:
+    """A leaf file as a tensor of the manifest's dtype; ``block``: only
+    those slices of it, read through a memory map."""
+    arr = np.load(path) if block is None else np.load(path, mmap_mode="r")[block]
     if dtype == "bfloat16":
         return torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
 
 
-def save(ckpt_dir: str, step: int, tree, blocking: bool = True) -> "threading.Thread | None":
-    """Write a checkpoint. Returns the writer thread when blocking=False."""
+def save(ckpt_dir: str, step: int, tree, blocking: bool = True,
+         shardings=None) -> "threading.Thread | None":
+    """Write a checkpoint. Returns the writer thread when blocking=False.
+    ``shardings``: ``tree`` is this rank's blocks of a tree laid out so on
+    a mesh; every rank calls, the leaves are gathered whole and rank 0
+    writes (a blocking save returns on every rank once the files are
+    written)."""
+    if shardings is not None:
+        import torch.distributed as dist
+
+        from repro_torch.sharding.collectives import gather_tree
+
+        whole = gather_tree(tree, shardings)
+        writer = save(ckpt_dir, step, whole, blocking) if dist.get_rank() == 0 else None
+        if blocking:
+            dist.barrier()
+        return writer
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(tree)
     # snapshot to host memory first so the training loop may proceed (and
@@ -164,10 +186,17 @@ def latest_step(ckpt_dir: str) -> "int | None":
 
 
 def restore(ckpt_dir: str, tree_template, step: "int | None" = None,
-            device: "str | torch.device | None" = None):
+            device: "str | torch.device | None" = None, shardings=None):
     """Load a checkpoint into the structure of ``tree_template`` (tensors,
-    on the ``meta`` device too) → (tree, step), each leaf in the manifest's
-    dtype on ``device`` (``None``: the card)."""
+    on the ``meta`` device too, of the whole shapes) → (tree, step), each
+    leaf in the manifest's dtype on ``device`` (``None``: the card).
+    ``shardings``: a tree of `Sharding`s like the template's on a mesh;
+    each leaf is then this rank's block, read alone, on the mesh's device
+    (an elastic restore onto any mesh)."""
+    flat_shard = {}
+    if shardings is not None:
+        flat_shard = _flatten(shardings)
+        device = next(iter(flat_shard.values())).mesh.device
     device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -180,10 +209,10 @@ def restore(ckpt_dir: str, tree_template, step: "int | None" = None,
     loaded = {}
     for k, t in _flatten(tree_template).items():
         meta = manifest["leaves"][k]
-        arr = _read_leaf(os.path.join(d, meta["file"]), meta["dtype"])
-        want = tuple(getattr(t, "shape", arr.shape))
-        if tuple(arr.shape) != want:
-            raise ValueError(f"checkpoint leaf {k} has shape {tuple(arr.shape)}; "
+        want = tuple(getattr(t, "shape", meta["shape"]))
+        if tuple(meta["shape"]) != want:
+            raise ValueError(f"checkpoint leaf {k} has shape {tuple(meta['shape'])}; "
                              f"the template's is {want}")
-        loaded[k] = arr.to(device)
+        block = flat_shard[k].block() if k in flat_shard else None
+        loaded[k] = _read_leaf(os.path.join(d, meta["file"]), meta["dtype"], block).to(device)
     return _unflatten(tree_template, loaded), manifest["step"]

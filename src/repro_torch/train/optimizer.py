@@ -11,6 +11,21 @@ is one leaf of a moment tree.  Leaves are visited in the reference's
 order, ``jax.tree.leaves``'s: dict keys sorted (`tree_leaves`), so the
 global gradient norm sums them in the same order.  Every update is
 computed in float32 and cast back to the parameter's dtype.
+
+On a mesh (``apply_updates(..., shardings=)``, the parameters' `Sharding`
+tree) every leaf is a local block and the update is the global one:
+
+  * the global gradient norm is one all-reduce of the local sums of
+    squares, each block counted once (a replicated block only on the
+    first of its replicas);
+  * the `Q8` moments follow `sharding.params.opt_state_specs`: ``q``
+    splits as its parameter, ``scale`` inherits the parameter's spec and
+    loses the last dimension's axis where the blocks do not divide.  Where
+    a shard's last-dimension width is not a multiple of the 256-wide block
+    (a block straddles shards) or the scales are not split as the
+    parameter, the leaf's rows are gathered along the last dimension, the
+    whole blocks updated (each absmax the whole block's), and this rank's
+    part kept.
 """
 from __future__ import annotations
 
@@ -148,9 +163,17 @@ def init_opt_state(params: dict, cfg: OptConfig) -> OptState:
     return OptState(step=step, m=m, v=v)
 
 
-def _global_norm(tree) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
-    return torch.sqrt(sq)
+def _global_norm(tree, shardings=None) -> torch.Tensor:
+    if shardings is None:
+        sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+        return torch.sqrt(sq)
+    from repro_torch.sharding import collectives as C
+
+    shs = tree_leaves(shardings)
+    sq = sum(torch.sum(torch.square(x.float())) * float(sh.is_first_replica())
+             for x, sh in zip(tree_leaves(tree), shs))
+    mesh = shs[0].mesh
+    return torch.sqrt(C._raw_all_reduce(sq, mesh, mesh.axis_names))
 
 
 # A leaf of more than this many elements is updated a slice of rows (along
@@ -196,11 +219,46 @@ def _by_slices(upd, p, g, m, v) -> tuple:
     return out
 
 
-def apply_updates(params: dict, grads: dict, state: OptState, cfg: OptConfig):
+def _q8_whole_rows(update, p, g, m: Q8, v: Q8, sh) -> tuple:
+    """``update`` of a Q8 leaf on a mesh (module doc): local where every
+    256-block and its scale lie in this rank's block, else over rows
+    gathered along the last dimension, this rank's part kept."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.params import fit
+
+    last = sh.spec[-1]
+    scale_last = fit(sh.mesh, sh.spec, (*sh.shape[:-1], _nb_last(sh.shape)))[-1]
+    if last is None or (p.shape[-1] % BLOCK == 0 and scale_last == last):
+        return update(p, g, m, v)
+    d = p.ndim - 1
+
+    def rows(t):
+        return C._raw_all_gather(t, sh.mesh, last, d)
+
+    def scales(t):
+        return t if scale_last is None else C._raw_all_gather(t, sh.mesh, scale_last, d)
+
+    new_p, new_m, new_v = update(rows(p), rows(g), Q8(rows(m.q), scales(m.scale)),
+                                 Q8(rows(v.q), scales(v.scale)))
+
+    def mine(t, entry):
+        if entry is None:
+            return t
+        n = t.shape[-1] // sh.mesh.axis_size(entry)
+        return t[..., sh.mesh.index(entry) * n:(sh.mesh.index(entry) + 1) * n].contiguous()
+
+    return (mine(new_p, last), Q8(mine(new_m.q, last), mine(new_m.scale, scale_last)),
+            Q8(mine(new_v.q, last), mine(new_v.scale, scale_last)))
+
+
+def apply_updates(params: dict, grads: dict, state: OptState, cfg: OptConfig,
+                  shardings=None):
     """→ (new_params, new_state, metrics). Updates computed in fp32 and cast
-    back to the parameter dtype; nothing is written in place."""
+    back to the parameter dtype; nothing is written in place.
+    ``shardings``: the parameters' `Sharding` tree on a mesh, every leaf a
+    local block (module doc)."""
     step = state.step + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, shardings)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
             if cfg.grad_clip else 1.0)
     stepf = step.float()
@@ -220,6 +278,14 @@ def apply_updates(params: dict, grads: dict, state: OptState, cfg: OptConfig):
         newp = (p.float() - cfg.lr * u).to(p.dtype)
         return (newp, q8_quantize(mf) if is_q8 else mf, q8v_quantize(vf) if is_q8 else vf)
 
-    out = tree_map(lambda p, g, m, v: _by_slices(upd, p, g, m, v), params, grads, state.m, state.v)
+    def leaf(p, g, m, v, sh=None):
+        if sh is not None and is_q8:
+            return _q8_whole_rows(lambda *a: _by_slices(upd, *a), p, g, m, v, sh)
+        return _by_slices(upd, p, g, m, v)
+
+    if shardings is None:
+        out = tree_map(leaf, params, grads, state.m, state.v)
+    else:
+        out = tree_map(leaf, params, grads, state.m, state.v, shardings)
     new_p, new_m, new_v = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
     return new_p, OptState(step=step, m=new_m, v=new_v), {"grad_norm": gnorm}

@@ -73,7 +73,10 @@ def test_port_has_modules():
                  "repro_torch.train.train_step", "repro_torch.train.checkpoint",
                  "repro_torch.train.fault_tolerance", "repro_torch.train.grad_compress",
                  "repro_torch.data.pipeline", "repro_torch.launch.train",
-                 "repro_torch.configs.tiny_classifier"):
+                 "repro_torch.configs.tiny_classifier", "repro_torch.sharding",
+                 "repro_torch.sharding.specs", "repro_torch.sharding.params",
+                 "repro_torch.sharding.collectives", "repro_torch.launch.mesh",
+                 "repro_torch.launch.ranks"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 
@@ -193,3 +196,31 @@ def test_no_jax_or_reference_imports_in_source(path):
 ])
 def test_forbidden_pattern_is_sharp(line, forbidden):
     assert bool(FORBIDDEN.search(line)) is forbidden
+
+
+def test_the_mesh_path_runs_with_jax_and_repro_blocked():
+    """`launch/mesh.py` and `sharding/` build the production mesh's layout
+    under the ``fake`` backend, and the rank programs of the mesh tests
+    import, with no JAX and nothing of the reference."""
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{str(REPO / 'src')!r}, {str(REPO)!r}]\n"
+        "import torch.distributed as dist\n"
+        "from torch.testing._internal.distributed.fake_pg import FakeStore\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "from repro_torch.sharding.params import param_shardings\n"
+        "import tests.torch_mesh_ranks\n"
+        "dist.init_process_group('fake', store=FakeStore(), rank=0, world_size=256)\n"
+        "mesh = make_production_mesh(device='cpu')\n"
+        "sh = param_shardings(get_config('minitron-8b'), mesh)['blocks']['wq']\n"
+        "assert sh.spec == (None, ('data',), ('model',)), sh.spec\n"
+        "print('mesh ok', sh.local_shape)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr
+    assert "mesh ok" in r.stdout
