@@ -308,12 +308,25 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 4,096 stream tokens: losses, step ms, each rank's peak
                 memory, collective bytes and ms a step by kind, every
                 rank's state on the card in its fitted blocks; the state
-                saved from the mesh.  (d) granite (dropless) and rwkv6-7b
-                at full width, 2 layers, float32: a prefill of 4 x 64 and
-                16 greedy steps on the mesh (weights gathered once) equal
-                to one process's tokens, logits within the limit.  (e)
-                (c)'s checkpoint restored on a 1 x 2 mesh of 2 new ranks
-                and in this process, bitwise the files.
+                saved from the mesh.  (d) granite (dropless), rwkv6-7b and
+                hymba-1.5b at full width, 2 layers, float32: a prefill of
+                4 x 64 and 16 greedy steps on the mesh (weights gathered
+                once; hymba's global cache split over tp, its Mamba state
+                by channel) equal to one process's tokens, logits within
+                the limit.  (e) (c)'s checkpoint restored on a 1 x 2 mesh
+                of 2 new ranks and in this process, bitwise the files.
+                (f) the dry run's prediction of (c)'s step (phase 15's
+                worker traced it on a fake 2 x 2 world of card tensors
+                before the ranks spawned): each collective kind's calls
+                and bytes a step equal to rank 0's real steps, the
+                argument bytes equal to its state's and batch block's, the
+                traced peak within 10 % of a real step's peak.
+  15. dryrun — the port's dry run (`launch/dryrun.py`) on the card's host,
+                in a process started before phase 4e that runs beside the
+                later phases: (f)'s trace, then a few production cells
+                (`DRYRUN_CELLS`) over fake worlds of 256 and 512 ranks on
+                fake card tensors, every record ``ok``: memory, FLOPs and
+                collective bytes a rank.
 
 Launch counts are set to 0 just before each main-path phase (3, 4, 4b, 4c,
 4d, 4e, 4f, 5, 10, 12, 13 and 14: the fits, then each fitted classifier's
@@ -323,8 +336,9 @@ fit, read after the oracle, the refit process counting its own searches'
 launches; in 4f before each replay, the subprocess host's join, replay and
 leave, the boot and its first answers, and the evolution RPCs' submit; in
 4g each rank counts its own from its start, and the replay is counted from
-0; in 12, 13 and 14 nothing may launch, and in 14 each rank counts its own
-from its start, summed with the parent's) and read just after; a kernel of the
+0; in 12, 13, 14 and 15 nothing may launch, in 14 each rank counts its own
+from its start, summed with the parent's, and in 15 the worker counts its
+own) and read just after; a kernel of the
 path that did not launch fails the run.
 Then the script prints a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -352,6 +366,11 @@ readings that `TRAIN_GRAD_LIMIT` is set from.
 
 runs only phase 14's (a) over N seeds, clean and with each planted fault,
 then (d) once: the readings that `SHARDED_REL_LIMIT` is set from.
+
+    python3 chip_smoke.py --dryrun-worker OUT
+
+is phase 15's worker (the main run starts it): its traces, written to
+OUT as JSON.
 
     python3 chip_smoke.py --evolve-rollbacks N
 
@@ -544,19 +563,24 @@ FLEET_TRACE_CHUNK, FLEET_PROC_EVENTS = 500, 4096
 # kappa = 300, G = 1,000 and the reference's migrate_every = 32
 ISLANDS, ISLAND_SHARDS, ISLAND_GATES, ISLAND_GENS, ISLAND_MIGRATE = 4, 2, 300, 1000, 32
 ISLAND_TIMEOUT_S = 600.0
-# lm: (a) minitron-8b at full width and depth, random bf16 weights, Engine
+# lm: (a) minitron-8b at full width with 8 of its 32 layers, random bf16
+# weights, Engine
 # at batch 4 and max_len 512 serving 8 requests of 256-token prompts and
 # 32 new tokens, greedy; (b) starcoder2-7b at full width with 4 of its 32
 # layers, one 4,608-token prompt (a multiple of both chunk sizes, past the
 # 4,096 window) and 8 decoded tokens; (c) the committed reference fixtures
 # in float32, within the CPU tests' tolerance; (d) the expert and SSM archs
-# served as (a): granite-moe-1b-a400m, rwkv6-7b and hymba-1.5b at full
-# size, arctic-480b at full width with 1 of its 35 layers (35 are 477 B
-# parameters, past one card's 80 GB)
+# served as (a): granite-moe-1b-a400m at full width with 8 of its 24
+# layers, rwkv6-7b and hymba-1.5b with 8 of their 32 (hymba's layer 0
+# global, the rest sliding), arctic-480b at full width with 1 of its 35
+# layers (35 are 477 B parameters, past one card's 80 GB)
 LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 256, 32, 512
 STARCODER_LAYERS, STARCODER_PROMPT, STARCODER_NEW = 4, 4608, 8
 LM_NEW_MODELS = ("granite-moe-1b-a400m", "arctic-480b", "rwkv6-7b", "hymba-1.5b")
-LM_LAYERS = {"starcoder2-7b": STARCODER_LAYERS, "arctic-480b": 1}   # depth cuts
+# depth cuts: arctic's for one card's memory, the others for the script's
+# time (PERF.md §4)
+LM_LAYERS = {"starcoder2-7b": STARCODER_LAYERS, "arctic-480b": 1, "minitron-8b": 8,
+             "granite-moe-1b-a400m": 8, "rwkv6-7b": 8, "hymba-1.5b": 8}
 # the decode-against-forward request of each model: (prompt, new tokens,
 # max_len).  rwkv6's prompt is no multiple of the wkv chunk of 16 (the
 # padding path); hymba's wraps the 1,024-slot ring of its sliding layers
@@ -574,17 +598,21 @@ LM_GOLDEN_TOL = 1e-5
 # limit, and each planted fault (`LM_FAULTS`, planted in a decode of the
 # same tokens by `forced_decode`) goes past it.  The limit is twice the
 # largest clean gap that `python3 chip_smoke.py --lm-calibrate 4` read over
-# 4 seeds (H100 80GB HBM3, 700 W; PERF.md §6): minitron 2.309e-6,
-# starcoder2 (4 layers) 3.560e-6, granite-moe 1.121e-6, arctic (1 layer)
-# 4.141e-6, rwkv6 1.472e-4 (float32 rounding through 32 layers of the
-# wkv recurrence: in float64 decode and forward agree to 1e-12,
-# `tests/test_torch_moe_ssm.py`), hymba 5.004e-6.  Every fault landed at
-# least 1,400x past its model's clean gap (a fault within 3x would be read,
-# not checked).  The expert archs are checked at a dropless capacity factor
-# E/k (at the production 1.25 a decode step drops pairs that `forward` keeps)
+# 4 seeds (H100 80GB HBM3, 700 W; PERF.md §6): minitron 2.309e-6 (32
+# layers; 2.345e-6 at 8), starcoder2 (4 layers) 3.560e-6, granite-moe
+# 1.121e-6 (24 layers; 1.181e-6 at 8), arctic (1 layer) 4.141e-6, rwkv6
+# (8 layers) 2.670e-5 (float32 rounding through the wkv recurrence: in
+# float64 decode and forward agree to 1e-12, `tests/test_torch_moe_ssm.py`;
+# 1.472e-4 at 32 layers), hymba 5.004e-6 (32 layers; 5.103e-6 at 8).  A
+# depth cut keeps a limit unless twice its own maximum is tighter (rwkv6's
+# was); each kept limit is at least 1.96x its 8-layer maximum.
+# Every fault landed at least 1,400x past its model's clean gap (a fault
+# within 3x would be read, not checked).  The expert archs are checked at
+# a dropless capacity factor E/k (at the production 1.25 a decode step
+# drops pairs that `forward` keeps)
 LM_REL_L2_LIMIT = {"minitron-8b": 4.62e-6, "starcoder2-7b": 7.12e-6,
                    "granite-moe-1b-a400m": 2.24e-6, "arctic-480b": 8.28e-6,
-                   "rwkv6-7b": 2.95e-4, "hymba-1.5b": 1.00e-5}
+                   "rwkv6-7b": 5.34e-5, "hymba-1.5b": 1.00e-5}
 LM_FAULTS = {arch: ("rope_position_plus_one", "cache_row_zeroed")
              for arch in ("minitron-8b", "starcoder2-7b", "granite-moe-1b-a400m", "arctic-480b")}
 LM_FAULTS["rwkv6-7b"] = ("wkv_state_zeroed", "token_shift_zeroed")
@@ -647,6 +675,16 @@ def gpu_line() -> str:
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in circuit_eval.KERNELS}
+
+
+def cut_depth(cfg: ModelConfig, layers: "int | None") -> ModelConfig:
+    """``cfg`` with its first ``layers`` layers (all of them for
+    ``None``), never a narrower one: a hybrid keeps the global layers that
+    lie under the cut."""
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers, global_layers=tuple(
+        i for i in cfg.global_layers if i < layers))
 
 
 def to_dev(*ts):
@@ -3291,8 +3329,7 @@ def lm_model(arch: str) -> dict:
     random bf16 weights drawn on the card from `SEED`, served by the
     engine and held to a hand-made chain and to `forward`."""
     t_entry = time.perf_counter()
-    cfg = get_config(arch)
-    cfg = dataclasses.replace(cfg, n_layers=LM_LAYERS.get(arch, cfg.n_layers))
+    cfg = cut_depth(get_config(arch), LM_LAYERS.get(arch))
     torch.cuda.reset_peak_memory_stats()
     params, init_ms = synced(lambda: init_params(
         torch.Generator(device=DEVICE).manual_seed(SEED), cfg, DEVICE))
@@ -3485,8 +3522,7 @@ def lm_calibrate(seeds: int) -> int:
     per model."""
     runs, summary = [], {}
     for arch in ("minitron-8b", "starcoder2-7b", *LM_NEW_MODELS):
-        cfg = get_config(arch)
-        cfg = dataclasses.replace(cfg, n_layers=LM_LAYERS.get(arch, cfg.n_layers))
+        cfg = cut_depth(get_config(arch), LM_LAYERS.get(arch))
         for seed in range(seeds):
             run = {"arch": arch, "layers": cfg.n_layers, "seed": seed, **decode_check(cfg, seed)}
             emit(run)
@@ -3949,7 +3985,9 @@ BF16_LAYERS, BF16_BATCH, BF16_SEQ, BF16_STEPS = 4, 4, 4096, 6
 BF16_LR = 3e-4
 # (d): decode on the mesh at full width with these depth cuts, float32, the
 # experts at a dropless E/k: batch 4, a 64-token prompt, 16 greedy steps
-MESH_DECODE_LAYERS = {"granite-moe-1b-a400m": 2, "rwkv6-7b": 2}
+# (hymba's layer 0 global, its cache split over tp, layer 1 sliding, its
+# ring whole; its Mamba state split by channel over tp)
+MESH_DECODE_LAYERS = {"granite-moe-1b-a400m": 2, "rwkv6-7b": 2, "hymba-1.5b": 2}
 MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_STEPS, MESH_DECODE_MAX_LEN = 4, 64, 16, 96
 
 
@@ -4178,6 +4216,9 @@ def bf16_case(mesh, payload: dict) -> dict:
     the stream; the state saved from the mesh for (e)."""
     from repro_torch.sharding import collectives as C
 
+    from repro_torch.sharding.params import shard_batch
+    from repro_torch.utils.collective_stats import collective_stats
+
     cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=BF16_LAYERS)
     opt = OptConfig(lr=BF16_LR)
     torch.cuda.reset_peak_memory_stats()
@@ -4188,18 +4229,31 @@ def bf16_case(mesh, payload: dict) -> dict:
                  for t, sh in zip(tree_leaves(state), tree_leaves(shs)))
     stream = TokenStream(vocab=cfg.vocab, batch=BF16_BATCH, seq_len=BF16_SEQ, seed=SEED)
     step = train_lib.make_train_step(cfg, opt, grad_shardings=shs.params)
-    losses, step_ms, per_step = [], [], []
+    losses, step_ms, per_step, records = [], [], [], []
     batch = stream.batch_at(0)
-    for _ in range(BF16_STEPS):
+    # (f): the bytes of the step's inputs on this rank (its state and its
+    # block of the batch), and each step's own peak (steps after the first)
+    arguments = state_bytes(state) + state_bytes(shard_batch(
+        mesh, {k: torch.as_tensor(v) for k, v in batch.items()}, cfg, "train"))
+    gc.collect()
+    peak, step_peaks = torch.cuda.max_memory_allocated(), []
+    for i in range(BF16_STEPS):
         C.STATS.reset()
+        if i:
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with C.STATS.timed():
+        with C.STATS.timed(), C.STATS.recording() as calls:
             state, m = step(state, batch)
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         per_step.append(C.STATS.snapshot())
+        records.append(collective_stats(calls))
+        if i:
+            step_peaks.append(torch.cuda.max_memory_allocated())
+    peak = max([peak] + step_peaks)
     kinds = sorted({k for s in per_step[1:] for k in s})
     collectives = {k: {f: statistics.mean(s.get(k, {}).get(f, 0) for s in per_step[1:])
                        for f in ("calls", "bytes", "ms")} for k in kinds}
@@ -4211,9 +4265,11 @@ def bf16_case(mesh, payload: dict) -> dict:
             "parameters": sum(math.prod(sh.shape) for sh in tree_leaves(shs.params)),
             "losses": losses, "step_ms": step_ms,
             "step_ms_median": statistics.median(step_ms[1:]),
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_mem_gb": peak / 1e9, "step_peak_bytes": step_peaks,
+            "argument_bytes": arguments,
             "local_state_gb": state_bytes(state) / 1e9, "all_on_card": on_card,
-            "fitted_shapes": fitted, "collectives_per_step": collectives, "save_s": save_s}
+            "fitted_shapes": fitted, "collectives_per_step": collectives, "save_s": save_s,
+            "stats_per_step": per_step[1:], "records_per_step": records[1:]}
 
 
 def decode_greedy(model, prompt: torch.Tensor) -> tuple:
@@ -4239,7 +4295,7 @@ def decode_case(mesh, payload: dict) -> dict:
 
     out = {}
     for arch, layers in MESH_DECODE_LAYERS.items():
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+        cfg = dataclasses.replace(cut_depth(get_config(arch), layers), dtype="float32")
         if cfg.moe is not None:
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
@@ -4355,10 +4411,31 @@ def check_parity(r: dict) -> None:
                            f"{gap}, within the limit {limit}")
 
 
-def phase_sharded() -> dict:
+def dry_prediction(traced: dict, real: dict) -> dict:
+    """(f): the dry run's trace of (c)'s step against rank 0's real steps:
+    each kind's calls and bytes a step (`STATS`' units, and the
+    reference's record), the argument bytes, the peak."""
+    def kinds(snap):
+        return {k.split(":")[0]: {f: v[f] for f in ("calls", "bytes")} for k, v in snap.items()}
+
+    want = kinds(traced["stats"])
+    peak = traced["memory"]["peak_size_in_bytes"]
+    real_peak = max(real["step_peak_bytes"])
+    return {"traced_per_step": want, "real_per_step": kinds(real["stats_per_step"][0]),
+            "stats_equal": all(kinds(snap) == want for snap in real["stats_per_step"]),
+            "records_equal": all(r == traced["collectives"] for r in real["records_per_step"]),
+            "traced_argument_bytes": traced["memory"]["argument_size_in_bytes"],
+            "real_argument_bytes": real["argument_bytes"],
+            "traced_peak_bytes": peak, "real_step_peak_bytes": real["step_peak_bytes"],
+            "peak_gap": peak / real_peak - 1.0, "peak_band": DRY_PEAK_BAND,
+            "traced_flops": traced["cost"]["flops"], "trace_s": traced["trace_s"]}
+
+
+def phase_sharded(dry: dict) -> dict:
     """Sharded training and decode on a 2 x 2 mesh of gloo ranks sharing
-    the card (phase 14 of the module doc).  No kernel of the table runs on
-    it."""
+    the card (phase 14 of the module doc), (c) held to the dry run's trace
+    of its step in ``dry`` (`dry_worker`, run before the ranks spawn).  No
+    kernel of the table runs on it."""
     t_phase = time.perf_counter()
     circuit_eval.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
@@ -4381,9 +4458,12 @@ def phase_sharded() -> dict:
            "ranks": len(card), "transport": "gloo",
            "boot_s": [r["boot_s"] for r in card], "gloo_on_cuda": r0["gloo"],
            "parity": r0["parity"], "experts": r0["experts"],
-           "bf16_training": {**bf16, "peak_mem_gb": [r["bf16"]["peak_mem_gb"] for r in card],
+           "bf16_training": {**{k: v for k, v in bf16.items()
+                                if k not in ("stats_per_step", "records_per_step")},
+                             "peak_mem_gb": [r["bf16"]["peak_mem_gb"] for r in card],
                              "all_on_card": all(r["bf16"]["all_on_card"] for r in card),
                              "fitted_shapes": all(r["bf16"]["fitted_shapes"] for r in card)},
+           "dry_run": dry_prediction(dry["sharded_c"], bf16),
            "decode": r0["decode"],
            "elastic": {"saved_on": "2x2", "mesh_1x2": small[0]["restore"],
                        "one_process": {"step": step, "bitwise_equal": one_equal,
@@ -4408,6 +4488,16 @@ def phase_sharded() -> dict:
           f"(c): losses {b['losses']}")
     check(b["all_on_card"] and b["fitted_shapes"], "(c): a rank's state is off the card or "
                                                    "not its fitted block")
+    f = out["dry_run"]
+    check(f["stats_equal"] and f["records_equal"],
+          f"(f): the dry run's collectives {f['traced_per_step']} differ from a real step's "
+          f"{f['real_per_step']}")
+    check(f["traced_argument_bytes"] == f["real_argument_bytes"],
+          f"(f): argument bytes {f['traced_argument_bytes']} traced, "
+          f"{f['real_argument_bytes']} held")
+    check(abs(f["peak_gap"]) <= DRY_PEAK_BAND,
+          f"(f): the traced peak {f['traced_peak_bytes']} is {f['peak_gap']:+.3%} off a real "
+          f"step's {f['real_step_peak_bytes']}")
     for name, r in out["decode"].items():
         check(r["token_mismatches"] == 0, f"(d) {name}: {r['token_mismatches']} tokens differ")
         check(r["max_rel_l2"] <= r["limit"], f"(d) {name}: logits differ by "
@@ -4441,6 +4531,117 @@ def sharded_calibrate(seeds: int) -> int:
           **{f"{f}_{r}_min": min(run["faults"][f][r] for run in runs)
              for f, r in SHARDED_FAULTS.items()}})
     return 0
+
+
+# -- 15. the dry run on the card's host ---------------------------------------
+# `dry_worker` runs in a process of its own, started before phase 4e (so
+# that its CPU-bound traces overlap the card's phases): (f)'s trace of
+# (c)'s step on a fake 2 x 2 world of card tensors, then these production
+# cells over fake worlds of 256 and 512 ranks.  Chosen by trace time (PERF.md
+# §6): the decode of the hybrid on the multi-pod mesh, the island cell and
+# granite's decode, seconds each; a full-size train cell (granite's took
+# 289 s on the card's host) slowed the phases it ran beside, and (f)
+# already traces a train step.
+DRYRUN_CELLS = (("hymba-1.5b", "decode_32k", "multi_pod_2x16x16"),
+                ("autotc", "tab_small", "single_pod_16x16"),
+                ("granite-moe-1b-a400m", "decode_32k", "single_pod_16x16"))
+DRY_PEAK_BAND = 0.10    # (f): the traced peak within 10 % of a real step's
+DRY_TIMEOUT_S = 900.0
+
+
+def dry_worker(out_path: str) -> int:
+    """``python3 chip_smoke.py --dryrun-worker OUT``: phase 15's traces
+    (module doc), written to OUT as JSON."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import collectives as C
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    mesh = dryrun.fake_host_mesh(SHARDED_MESH, DEVICE)
+    cfg = dataclasses.replace(get_config(SHARDED_ARCH), n_layers=BF16_LAYERS)
+    C.STATS.reset()
+    traced = dryrun.trace_step(cfg, ShapeConfig("sharded_c", "train", BF16_SEQ, BF16_BATCH),
+                               mesh, OptConfig(lr=BF16_LR))
+    out = {"sharded_c": {**{k: v for k, v in traced.items() if k != "ops"},
+                         "stats": C.STATS.snapshot()}, "cells": []}
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        for arch, shape, mesh_name in DRYRUN_CELLS:
+            t_cell = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, dryrun.production_mesh(mesh_name, DEVICE),
+                                  mesh_name, tmp, force=True)
+            rec.pop("ops", None)
+            out["cells"].append({**rec, "wall_s": time.perf_counter() - t_cell})
+    out["launches"] = launch_counts()
+    out["worker_s"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+@contextlib.contextmanager
+def dry_worker_running():
+    """`dry_worker` started in a process of its own for the block, and
+    killed at its end if it still runs."""
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        path = os.path.join(tmp, "dry.json")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(ROOT, "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p]))
+        proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                 "--dryrun-worker", path], cwd=ROOT, env=env,
+                                stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            yield proc, path, time.perf_counter()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def finish_dry_worker(worker: tuple) -> dict:
+    """The worker's result (it has had the phases since 4e to run); it is
+    killed past `DRY_TIMEOUT_S` from its start."""
+    proc, path, t0 = worker
+    try:
+        _, err = proc.communicate(timeout=max(1.0, DRY_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"the dry-run worker did not finish within {DRY_TIMEOUT_S} s")
+    check(proc.returncode == 0, f"the dry-run worker failed:\n{err[-4000:]}")
+    with open(path) as f:
+        out = json.load(f)
+    out["waited_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_dryrun(dry: dict) -> dict:
+    """Phase 15: each production cell's record from the card's host
+    (`launch/dryrun.py`), every one ``ok``; memory, FLOPs and collective
+    bytes a rank.  The FLOPs are also read at the card's dense bf16 peak
+    (989 TFLOP/s, an H100 SXM's data sheet) beside the card's name and
+    power limit."""
+    cells = []
+    for rec in dry["cells"]:
+        cell = {k: rec.get(k) for k in ("arch", "shape", "mesh", "n_devices", "status", "kind",
+                                        "tokens", "trace_s", "wall_s", "error")}
+        if rec.get("status") == "ok":
+            cell.update(memory=rec["memory"], flops=rec["cost"].get("flops"),
+                        collectives=rec["collectives"], first_step=rec.get("first_step"))
+            if rec["kind"] != "evolve":
+                cell["flops_ms_at_bf16_dense_peak"] = rec["cost"]["flops"] / BF16_DENSE_FLOPS * 1e3
+        cells.append(cell)
+    out = {"phase": "dryrun", "card": gpu_line(), "cells": cells,
+           "worker_s": dry["worker_s"], "waited_s": dry["waited_s"],
+           "launches": dry["launches"]}
+    emit(out)
+    for c in cells:
+        check(c["status"] == "ok", f"dryrun {c['arch']} x {c['shape']} on {c['mesh']}: "
+                                   f"{c['status']} {c.get('error')}")
+    check(not any(out["launches"].values()), f"the dry run launched a kernel: {out['launches']}")
+    return out
 
 
 # -- A/B against another tree ----------------------------------------------
@@ -4515,6 +4716,8 @@ def main() -> int:
         return train_calibrate(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--sharded-calibrate":
         return sharded_calibrate(int(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-worker":
+        return dry_worker(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--evolve-rollbacks":
         phase_env()
         phase_evolve(int(sys.argv[2]))
@@ -4526,24 +4729,28 @@ def main() -> int:
     predict_launches = phase_predict(gold)
     serve_launches, timing_case, profile_case = phase_serve(gold)
     path_launches = {**phase_swap(gold), **phase_async(gold), **phase_autoscale(gold)}
-    evolve_spans, evolve_population = phase_evolve()
-    path_launches.update(evolve_spans)
-    path_launches.update(phase_fleet())
-    split = higgs_split()
-    island_launches = phase_islands(split)
-    fit_launches, higgs_clf = phase_fit(gold, split)
-    population_launches = {"predict": predict_launches["eval_population"], **fit_launches,
-                           "evolve": evolve_population, "islands": island_launches}
-    fit_parity_case = phase_fit_parity(split)
-    population_launches["toolflow"], baselines = phase_toolflow(higgs_clf, split)
-    entries = phase_timing(gold, checks, population_launches, serve_launches, path_launches,
-                           timing_case, fit_parity_case)
-    phase_sweep(gold)
-    phase_profile(profile_case)
-    phase_mlp_profile(baselines)
-    phase_lm()
-    phase_train()
-    phase_sharded()
+    # the dry-run worker traces beside the phases from 4e on
+    with dry_worker_running() as worker:
+        evolve_spans, evolve_population = phase_evolve()
+        path_launches.update(evolve_spans)
+        path_launches.update(phase_fleet())
+        split = higgs_split()
+        island_launches = phase_islands(split)
+        fit_launches, higgs_clf = phase_fit(gold, split)
+        population_launches = {"predict": predict_launches["eval_population"], **fit_launches,
+                               "evolve": evolve_population, "islands": island_launches}
+        fit_parity_case = phase_fit_parity(split)
+        population_launches["toolflow"], baselines = phase_toolflow(higgs_clf, split)
+        entries = phase_timing(gold, checks, population_launches, serve_launches, path_launches,
+                               timing_case, fit_parity_case)
+        phase_sweep(gold)
+        phase_profile(profile_case)
+        phase_mlp_profile(baselines)
+        phase_lm()
+        phase_train()
+        dry = finish_dry_worker(worker)
+        phase_sharded(dry)
+        phase_dryrun(dry)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on the main path")
     check(all(v > 0 for v in population_launches.values()),

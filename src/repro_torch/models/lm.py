@@ -46,12 +46,15 @@ whole logits on every rank (the ("batch", None, "vocab") logits gathered
 over fsdp; a batch the fsdp axes do not divide runs whole on every rank),
 and its caches live in `cache_specs`' layout (`init_cache` makes the
 local blocks): an attention cache's sequence split over tp, an RWKV
-state's heads split over tp.  Its decode steps read weights gathered on
-the first step and kept: the experts' tp block and every other leaf
-whole, so a rank holds the whole model while it decodes (per-layer
-gathers each step would move the whole model through the collectives
-per token).  The hybrid's decode on a mesh is not ported (ROADMAP); its
-`cache_specs` are.
+state's heads split over tp; the hybrid's sliding rings whole on every
+rank, its global caches' sequence split over tp and its Mamba state
+(``m_h``, and ``m_conv`` on its last axis) split by channel over tp.
+Its decode steps read weights gathered on the first step and kept: the
+experts' tp block and every other leaf whole, so a rank holds the whole
+model while it decodes (per-layer gathers each step would move the whole
+model through the collectives per token).  The hybrid's Mamba mixer then
+runs the rank's channels (`ssm.mamba_mix`): its two products that sum
+over every channel are completed by an all-reduce over tp.
 """
 from __future__ import annotations
 
@@ -444,10 +447,16 @@ class CausalLM(nn.Module):
         length, a host int like ``pos``)."""
         if self.mesh is not None:
             shapes = cache_shapes(self.cfg, batch, max_len)
-            return {"pos": 0, "t": self.cache_len(max_len), **{k: torch.zeros(sh.local_shape, dtype=shapes[k].dtype,
-                                                device=self.device)
-                                 for k, sh in self.cache_shardings(batch, max_len).items()}}
+            return {"pos": 0, "t": self._split_len(max_len),
+                    **{k: torch.zeros(sh.local_shape, dtype=shapes[k].dtype, device=self.device)
+                       for k, sh in self.cache_shardings(batch, max_len).items()}}
         return self._whole_cache(batch, max_len)
+
+    def _split_len(self, max_len: int) -> int:
+        """The whole length of the cache a mesh splits along the sequence
+        (``t`` of a cache on a mesh): the hybrid's global caches, else the
+        attention cache."""
+        return max_len if self.cfg.block_kind == "hybrid" else self.cache_len(max_len)
 
     def _whole_cache(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
@@ -483,7 +492,6 @@ class CausalLM(nn.Module):
         b_all = next(iter(batch.values())).shape[0]
         with self._on_mesh(b_all):
             if self.mesh is not None:
-                self._mesh_decode_supported()
                 batch = shard_batch(self.mesh, batch, self.cfg, "prefill")
             logits, cache = self._prefill(batch.get("tokens"), batch.get("embeds"),
                                           batch.get("positions"), max_len)
@@ -491,11 +499,6 @@ class CausalLM(nn.Module):
                 cache = self._cut_cache(cache, b_all)
                 logits = self._whole_batch(logits)
         return logits, cache
-
-    def _mesh_decode_supported(self) -> None:
-        if self.cfg.block_kind == "hybrid":
-            raise NotImplementedError("the hybrid's prefill and decode on a mesh are not "
-                                      "ported (ROADMAP queue 1); its cache_specs are")
 
     def _whole_batch(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of the batch, gathered over fsdp (the rows
@@ -506,15 +509,18 @@ class CausalLM(nn.Module):
 
     def _cut_cache(self, cache: dict, b_all: int) -> dict:
         """A cache of this rank's batch rows, whole along its other
-        dimensions, cut to this rank's blocks (`cache_specs`)."""
-        t = 1 if self.cfg.block_kind == "rwkv" else cache["k"].shape[2]
+        dimensions, cut to this rank's blocks (`cache_specs`; the hybrid's
+        rings stay whole)."""
+        kind = self.cfg.block_kind
+        t = 1 if kind == "rwkv" else cache["gk" if kind == "hybrid" else "k"].shape[2]
         out = {"pos": cache["pos"], "t": t}
+        kv_split = kind not in ("rwkv", "hybrid")
         for k, sh in self.cache_shardings(b_all, t).items():
-            if k in ("k", "v"):
+            if k in ("k", "v") and kv_split:
                 continue
             spec = tuple(None if d == 1 else e for d, e in enumerate(sh.spec))
             out[k] = local_block(cache[k], self.mesh, spec).contiguous()
-        if "k" in cache:
+        if kv_split:
             # each layer's (B, T, Hkv, hd) rows to the decode layout
             k, v = constrain_kv_collect(cache["k"].flatten(0, 1), cache["v"].flatten(0, 1))
             out["k"], out["v"] = (c.unflatten(0, cache["k"].shape[:2]).contiguous()
@@ -561,7 +567,6 @@ class CausalLM(nn.Module):
         rank's cache blocks updated."""
         with self._on_mesh(next(v for v in (token, embed) if v is not None).shape[0]):
             if self.mesh is not None:
-                self._mesh_decode_supported()
                 kind = {k: v for k, v in (("token", token), ("embed", embed)) if v is not None}
                 local = shard_batch(self.mesh, kind, self.cfg, "decode")
                 token, embed = local.get("token"), local.get("embed")
@@ -620,11 +625,27 @@ class CausalLM(nn.Module):
     def _decode_hybrid(self, x: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
         """The hybrid's layers for one token: global layers write their
         full-length cache at ``pos``, sliding layers their ring at
-        ``pos % w``, and every layer's Mamba state is updated in place."""
+        ``pos % w``, and every layer's Mamba state is updated in place.
+        On a mesh (module doc) a global cache split over tp is written by
+        the rank that holds ``pos`` and read by the split softmax, and the
+        Mamba mixer runs this rank's channels of the state."""
         cfg = self.cfg
         b = x.shape[0]
         positions = self._positions(b, 1, offset=pos)
         slot = pos % cache["k"].shape[2]
+        split = channels = reduce = None
+        if self.mesh is not None:
+            mesh, axes = self.mesh, MeshAxes.for_mesh(self.mesh)
+            g_loc = cache["gk"].shape[2]
+            if g_loc < cache["t"]:
+                split = (self._split(g_loc)[0], cache["t"])
+            di_loc = cache["m_h"].shape[2]
+            if di_loc < self._d_inner():
+                c0 = self._split(di_loc)[0]
+                channels = (c0, c0 + di_loc)
+
+                def reduce(y):
+                    return C.all_reduce(y, mesh, axes.tp)
         g = 0
         for i in range(cfg.n_layers):
             lp = self._layer(i)
@@ -632,9 +653,14 @@ class CausalLM(nn.Module):
             q, k, v = blocks._qkv(h, lp, cfg)
             q, k = blocks._apply_pos(q, k, positions, cfg)
             if i in cfg.global_layers:
-                kc = blocks._cache_write(cache["gk"][g], k, pos)
-                vc = blocks._cache_write(cache["gv"][g], v, pos)
-                o = decode_attention(q, kc, vc, pos)
+                offset = 0 if split is None else split[0]
+                kc = blocks._cache_write(cache["gk"][g], k, pos, offset)
+                vc = blocks._cache_write(cache["gv"][g], v, pos, offset)
+                if split is None:
+                    o = decode_attention(q, kc, vc, pos)
+                else:
+                    o = blocks.decode_attention_split(q, kc, vc, pos, offset=offset,
+                                                      total=split[1], mesh=mesh, axes=axes)
                 g += 1
             else:
                 kc = blocks._cache_write(cache["k"][i], k, slot)
@@ -642,7 +668,8 @@ class CausalLM(nn.Module):
                 o = decode_attention(q, kc, vc, pos, ring=True)
             attn_o = o.reshape(b, 1, cfg.q_dim) @ lp["wo"]
             mst = ssm_lib.MambaState(cache["m_h"][i], cache["m_conv"][i])
-            mamba_o, mst = ssm_lib.mamba_mix(h, mst, lp, cfg.ssm.state_dim)
+            mamba_o, mst = ssm_lib.mamba_mix(h, mst, lp, cfg.ssm.state_dim, channels=channels,
+                                             reduce=reduce)
             cache["m_h"][i] = mst.h
             cache["m_conv"][i] = mst.conv
             x = x + attn_o + mamba_o

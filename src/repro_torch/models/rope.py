@@ -51,8 +51,7 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         raise ValueError(f"sections {secs} do not cover {half} rotary channels")
     freqs = rope_freqs(x.shape[-1], theta, x.device)        # (half,)
     # which positional id drives each rotary channel
-    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.tensor(secs, device=x.device))
+    sec_id = torch.tensor([i for i, n in enumerate(secs) for _ in range(n)], device=x.device)
     pos = positions3.float()[..., sec_id]                   # (B, S, half)
     ang = pos * freqs
     cos = torch.cos(ang)[:, :, None, :]

@@ -196,21 +196,41 @@ def _causal_conv(x, conv_hist, w):
     return y, xp[:, xp.shape[1] - (cw - 1):, :]
 
 
-def mamba_mix(x, state: MambaState, p, n_state: int):
-    """Selective SSM over a sequence: x (B, S, D) → (B, S, D), new state."""
+def mamba_mix(x, state: MambaState, p, n_state: int,
+              channels: "tuple[int, int] | None" = None, reduce=None):
+    """Selective SSM over a sequence: x (B, S, D) → (B, S, D), new state.
+
+    ``channels=(c0, c1)`` runs the channels ``[c0, c1)`` of d_inner only,
+    ``state`` being theirs (a mesh splits the Mamba state by channel over
+    tp): the rank's columns of each half of ``m_in`` (``xin`` and ``z``),
+    its rows of the conv, ``m_x`` and ``m_out`` and its entries of the
+    per-channel leaves.  ``m_x``'s and ``m_out``'s products sum over every
+    channel, so ``reduce`` (a sum over the ranks that hold the other
+    channels) completes each partial product."""
     b, s_len, d = x.shape
-    xz = x @ p["m_in"].to(x.dtype)                                 # (B, S, 2di)
-    xin, z = torch.chunk(xz, 2, dim=-1)
-    xc, conv_hist = _causal_conv(xin, state.conv, p["m_conv"])
+    di = p["m_in"].shape[-1] // 2
+    c0, c1 = channels if channels is not None else (0, di)
+    ch = slice(c0, c1)
+    if channels is None:
+        xz = x @ p["m_in"].to(x.dtype)                             # (B, S, 2di)
+        xin, z = torch.chunk(xz, 2, dim=-1)
+    else:
+        xin = x @ p["m_in"][:, ch].to(x.dtype)
+        z = x @ p["m_in"][:, di + c0:di + c1].to(x.dtype)
+
+    def summed(y):
+        return y if reduce is None else reduce(y)
+
+    xc, conv_hist = _causal_conv(xin, state.conv, p["m_conv"][ch])
     xc = F.silu(xc)
     dtr = p["m_dtw"].shape[0]
-    dbc = xc @ p["m_x"].to(x.dtype)                                # (B, S, dtr+2N)
+    dbc = summed(xc @ p["m_x"][ch].to(x.dtype))                    # (B, S, dtr+2N)
     dt_low = dbc[..., :dtr]
     b_t = dbc[..., dtr:dtr + n_state].float()
     c_t = dbc[..., dtr + n_state:].float()
     # softplus in the activation dtype, then float32 (the reference's order)
-    dt = F.softplus(dt_low @ p["m_dtw"].to(x.dtype) + p["m_dtb"].to(x.dtype)).float()
-    a = -torch.exp(p["m_Alog"].float())                            # (di, N)
+    dt = F.softplus(dt_low @ p["m_dtw"][:, ch].to(x.dtype) + p["m_dtb"][ch].to(x.dtype)).float()
+    a = -torch.exp(p["m_Alog"][ch].float())                        # (di, N)
     xcf = xc.float()
 
     h = state.h.float()
@@ -228,6 +248,6 @@ def mamba_mix(x, state: MambaState, p, n_state: int):
             hs[i] = h
         ys.append(torch.einsum("tbdn,tbn->tbd", hs, c_t[:, t0:t1].transpose(0, 1)))
     y = torch.cat(ys).transpose(0, 1).to(x.dtype)                  # (B, S, di)
-    y = y + xc * p["m_D"].to(x.dtype)[None, None, :]
-    out = (y * F.silu(z)) @ p["m_out"].to(x.dtype)
+    y = y + xc * p["m_D"][ch].to(x.dtype)[None, None, :]
+    out = summed((y * F.silu(z)) @ p["m_out"][ch].to(x.dtype))
     return out, MambaState(h=h, conv=conv_hist)

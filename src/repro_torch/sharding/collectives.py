@@ -34,7 +34,11 @@ all-gather's output, a reduce-scatter's input, an all-reduce's tensor.
 Milliseconds are counted only inside ``with STATS.timed():``, a
 measurement's window: wall time around each call, with the card
 synchronised before and after it when the tensor lives there.  Outside
-the window a collective adds no host synchronisation of its own.
+the window a collective adds no host synchronisation of its own.  Inside
+``with STATS.recording() as calls:`` each collective is also appended to
+``calls`` as a `utils.collective_stats.Call` (its result's shape and its
+group's size), which `collective_stats` turns into the reference's
+record of the step's traffic (`launch/dryrun.py`).
 """
 from __future__ import annotations
 
@@ -46,15 +50,30 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.sharding.specs import Mesh, _names
+from repro_torch.utils.collective_stats import Call
 
 
 class CollectiveStats:
     """Calls, bytes and ms per (kind, transport); `snapshot` reads them,
-    and ms are counted only inside `timed` (module doc)."""
+    ms are counted only inside `timed` and each call is listed only
+    inside `recording` (module doc)."""
 
     def __init__(self):
         self.timing = False
+        self.calls: "list[Call] | None" = None
         self.reset()
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Yield a list that every collective issued inside the block is
+        appended to, as a `Call`."""
+        prev, self.calls = self.calls, []
+        try:
+            yield self.calls
+        finally:
+            if prev is not None:
+                prev.extend(self.calls)
+            self.calls = prev
 
     @contextlib.contextmanager
     def timed(self):
@@ -68,11 +87,13 @@ class CollectiveStats:
     def reset(self) -> None:
         self.by_kind: dict = defaultdict(lambda: {"calls": 0, "bytes": 0, "ms": 0.0})
 
-    def add(self, kind: str, transport: str, nbytes: int, ms: float) -> None:
+    def add(self, kind: str, transport: str, nbytes: int, ms: float, call: Call) -> None:
         s = self.by_kind[f"{kind}:{transport}"]
         s["calls"] += 1
         s["bytes"] += int(nbytes)
         s["ms"] += ms
+        if self.calls is not None:
+            self.calls.append(call)
 
     def snapshot(self) -> dict:
         return {k: dict(v) for k, v in sorted(self.by_kind.items())}
@@ -90,10 +111,12 @@ def _transport(group, x: torch.Tensor) -> str:
 
 class _Timed:
     """Counts one collective into `STATS`; inside `STATS.timed` also its
-    ms, the card synchronised around it when the tensor lives there."""
+    ms, the card synchronised around it when the tensor lives there.
+    ``result``: the collective's output on this rank (`STATS.recording`)."""
 
-    def __init__(self, kind: str, group, x: torch.Tensor, nbytes: int):
+    def __init__(self, kind: str, group, x: torch.Tensor, nbytes: int, result: torch.Tensor):
         self.kind, self.group, self.x, self.nbytes = kind, group, x, nbytes
+        self.call = Call(kind, result.dtype, tuple(result.shape), dist.get_world_size(group))
         self.sync = STATS.timing and x.device.type == "cuda"
 
     def __enter__(self):
@@ -105,7 +128,7 @@ class _Timed:
         if self.sync:
             torch.cuda.synchronize(self.x.device)
         ms = (time.perf_counter() - self.t0) * 1e3 if STATS.timing else 0.0
-        STATS.add(self.kind, _transport(self.group, self.x), self.nbytes, ms)
+        STATS.add(self.kind, _transport(self.group, self.x), self.nbytes, ms, self.call)
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -123,7 +146,7 @@ def _raw_all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor
     group = mesh.group(axes)
     x = x.contiguous()
     buf = x.new_empty((n * x.shape[0], *x.shape[1:]))
-    with _Timed("all_gather", group, x, _nbytes(buf)):
+    with _Timed("all_gather", group, x, _nbytes(buf), buf):
         dist.all_gather_into_tensor(buf, x, group=group)
     if dim == 0:
         return buf
@@ -137,7 +160,7 @@ def _raw_reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Te
     group = mesh.group(axes)
     xs = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0).contiguous()
     out = xs.new_empty(xs.shape[1:])
-    with _Timed("reduce_scatter", group, xs, _nbytes(xs)):
+    with _Timed("reduce_scatter", group, xs, _nbytes(xs), out):
         dist.reduce_scatter_tensor(out, xs.flatten(0, 1) if out.ndim else xs, op=dist.ReduceOp.SUM,
                                    group=group)
     return out
@@ -149,7 +172,7 @@ def _raw_all_reduce(x: torch.Tensor, mesh: Mesh, axes, op=dist.ReduceOp.SUM,
         return x
     group = mesh.group(axes)
     y = x.contiguous().clone()
-    with _Timed(kind, group, y, _nbytes(y)):
+    with _Timed(kind, group, y, _nbytes(y), y):
         dist.all_reduce(y, op=op, group=group)
     return y
 

@@ -79,6 +79,7 @@ import dataclasses
 import math
 import threading
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -138,10 +139,12 @@ class Mesh:
         if len(axes) == 1:
             return self.device_mesh.get_group(axes[0])
         if axes not in self._groups:
-            ranks = torch.arange(self.size).reshape(tuple(self.shape.values()))
+            # host arithmetic (numpy): no tensor, so a dry run's fake
+            # tensor mode never sees it
+            ranks = np.arange(self.size).reshape(tuple(self.shape.values()))
             keep = [self.axis_names.index(a) for a in axes]
             rest = [i for i in range(len(self.axis_names)) if i not in keep]
-            ranks = ranks.permute(*rest, *keep).reshape(-1, math.prod(
+            ranks = ranks.transpose(*rest, *keep).reshape(-1, math.prod(
                 self.shape[a] for a in axes))
             group, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
             self._groups[axes] = group

@@ -76,7 +76,8 @@ def test_port_has_modules():
                  "repro_torch.configs.tiny_classifier", "repro_torch.sharding",
                  "repro_torch.sharding.specs", "repro_torch.sharding.params",
                  "repro_torch.sharding.collectives", "repro_torch.launch.mesh",
-                 "repro_torch.launch.ranks"):
+                 "repro_torch.launch.ranks", "repro_torch.launch.dryrun",
+                 "repro_torch.utils", "repro_torch.utils.collective_stats"):
         assert want in mods
     assert (PORT / "csrc" / "circuit_eval.cu").is_file()
 
