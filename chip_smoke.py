@@ -243,8 +243,10 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 (a)).  (c) the committed
                 reference fixtures (`lm_*_smoke.npz`: minitron; granite-moe
                 dropping pairs in decode; rwkv6 with a padded prompt; hymba
-                with its ring wrapped) in float32: the same greedy tokens,
-                logits within 1e-5.  (d) as (a), the expert and SSM archs:
+                with its ring wrapped; stablelm, llama3; qwen2-vl and
+                musicgen from embeddings) in float32: the same greedy
+                tokens, logits within 1e-5.  (d) as (a), the expert and
+                SSM archs:
                 granite-moe-1b-a400m (24 layers, 32 experts, top-8, 1.33 B
                 parameters), rwkv6-7b (32 layers, d = 4,096, 7.53 B) and
                 hymba-1.5b (32 layers, 3 global) at full size, arctic-480b
@@ -255,8 +257,24 @@ Phases, one JSON line each; any failure exits non-zero before the result:
                 decode check runs at a dropless E/k.  rwkv6's check
                 request has 251 tokens, no multiple of the wkv chunk;
                 hymba's has 1,280 tokens at max_len 1,344, past its
-                1,024-slot ring.  Each line has its peak memory and its
-                seconds.
+                1,024-slot ring.  (e) as (a), the last four archs:
+                stablelm-12b at full size (40 layers, d = 5,120, head_dim
+                160, 12.14 B parameters), qwen2-vl-7b (8 of 28 layers) and
+                musicgen-medium (8 of 48) through their token ids, and
+                llama3-405b at full width with 2 of its 126 layers (10.58 B;
+                the float32 check at 4 would hold 67.8 GB of weights).  (f)
+                the embedding frontends' own path for qwen2-vl-7b and
+                musicgen-medium: seeded embeddings made on the card in the
+                model's dtype, `prefill(embeds=, positions=)` (qwen2-vl's
+                prompt a 12 x 16 image grid at distinct (t, h, w) M-RoPE
+                ids, then text), then `decode_step(embed=)` fed each greedy
+                token's embedding row: bf16 prefill and decode ms at batch 4
+                beside the bound, M-RoPE's cost a call; then in float32
+                against `forward` over the whole sequence (decode at the
+                cache position on all three axes), its own limit, with
+                `mrope_hw_dropped` (the prefill rotating by (t, t, t))
+                planted beside the cache faults.  Each line has its peak
+                memory and its seconds.
   13. train   — training on the card (`train/`, `models.lm.forward` with
                 remat).  (a) granite-moe-1b-a400m at full size (24 layers,
                 1.33 B parameters, 32 experts top-8 at capacity 1.25, remat
@@ -430,7 +448,9 @@ from repro_torch.kernels import ref as plain  # noqa: E402
 from repro_torch.kernels.program import compile_program  # noqa: E402
 from repro_torch.launch.islands import launch_islands, spawn_ranks  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models import blocks as lm_blocks  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import rope as lm_rope  # noqa: E402
 from repro_torch.data.pipeline import TokenStream  # noqa: E402
 from repro_torch.models.common import ModelConfig  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
@@ -573,14 +593,27 @@ ISLAND_TIMEOUT_S = 600.0
 # served as (a): granite-moe-1b-a400m at full width with 8 of its 24
 # layers, rwkv6-7b and hymba-1.5b with 8 of their 32 (hymba's layer 0
 # global, the rest sliding), arctic-480b at full width with 1 of its 35
-# layers (35 are 477 B parameters, past one card's 80 GB)
+# layers (35 are 477 B parameters, past one card's 80 GB); (e) the last
+# four archs served as (a): stablelm-12b at full size (40 layers, head_dim
+# 160), qwen2-vl-7b with 8 of its 28 layers, musicgen-medium with 8 of its
+# 48, llama3-405b at full width with 2 of its 126 layers (its float32
+# check at 4 would hold 67.8 GB of weights alone); (f) the two embedding
+# frontends' own path (`LM_FRONTENDS`): seeded embeddings made on the card
+# in the model's dtype, qwen2-vl's prompt an image of `LM_IMAGE_GRID`
+# patches at distinct (t, h, w) ids then text, each decode step fed the
+# greedy token's embedding row
 LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 256, 32, 512
 STARCODER_LAYERS, STARCODER_PROMPT, STARCODER_NEW = 4, 4608, 8
-LM_NEW_MODELS = ("granite-moe-1b-a400m", "arctic-480b", "rwkv6-7b", "hymba-1.5b")
-# depth cuts: arctic's for one card's memory, the others for the script's
-# time (PERF.md §4)
+LM_NEW_MODELS = ("granite-moe-1b-a400m", "arctic-480b", "rwkv6-7b", "hymba-1.5b",
+                 "stablelm-12b", "qwen2-vl-7b", "musicgen-medium", "llama3-405b")
+LM_FRONTENDS = ("qwen2-vl-7b", "musicgen-medium")
+LM_IMAGE_GRID = (12, 16)        # 192 of the 256-token prompt, then 64 of text
+LM_FRAME_SEED = 1000            # the frontends' embeddings: SEED + this
+# depth cuts: arctic's and llama3's for one card's memory, the others for
+# the script's time (PERF.md §4); stablelm runs at full depth
 LM_LAYERS = {"starcoder2-7b": STARCODER_LAYERS, "arctic-480b": 1, "minitron-8b": 8,
-             "granite-moe-1b-a400m": 8, "rwkv6-7b": 8, "hymba-1.5b": 8}
+             "granite-moe-1b-a400m": 8, "rwkv6-7b": 8, "hymba-1.5b": 8,
+             "qwen2-vl-7b": 8, "musicgen-medium": 8, "llama3-405b": 2}
 # the decode-against-forward request of each model: (prompt, new tokens,
 # max_len).  rwkv6's prompt is no multiple of the wkv chunk of 16 (the
 # padding path); hymba's wraps the 1,024-slot ring of its sliding layers
@@ -590,7 +623,9 @@ LM_CHECK = {"minitron-8b": (LM_PROMPT, LM_NEW, LM_MAX_LEN),
             "granite-moe-1b-a400m": (LM_PROMPT, LM_NEW, LM_MAX_LEN),
             "arctic-480b": (LM_PROMPT, LM_NEW, LM_MAX_LEN),
             "rwkv6-7b": (251, LM_NEW, LM_MAX_LEN),
-            "hymba-1.5b": (1280, LM_NEW, 1344)}
+            "hymba-1.5b": (1280, LM_NEW, 1344),
+            **{arch: (LM_PROMPT, LM_NEW, LM_MAX_LEN) for arch in (
+                "stablelm-12b", "qwen2-vl-7b", "musicgen-medium", "llama3-405b")}}
 LM_GOLDEN_TOL = 1e-5
 # decode against `forward` over the same sequence, on float32 weights
 # (`decode_check`): at every position the relative L2 gap of the logits,
@@ -603,20 +638,32 @@ LM_GOLDEN_TOL = 1e-5
 # 1.121e-6 (24 layers; 1.181e-6 at 8), arctic (1 layer) 4.141e-6, rwkv6
 # (8 layers) 2.670e-5 (float32 rounding through the wkv recurrence: in
 # float64 decode and forward agree to 1e-12, `tests/test_torch_moe_ssm.py`;
-# 1.472e-4 at 32 layers), hymba 5.004e-6 (32 layers; 5.103e-6 at 8).  A
+# 1.472e-4 at 32 layers), hymba 5.004e-6 (32 layers; 5.103e-6 at 8),
+# stablelm (40 layers) 4.485e-6, qwen2-vl (8 layers) 3.553e-6 and on its
+# embeddings request (``/embeds``: `frontend_prompt`) 5.469e-6, musicgen
+# (8 layers) 1.474e-6 and 1.826e-6, llama3 (2 layers) 9.949e-6.  A
 # depth cut keeps a limit unless twice its own maximum is tighter (rwkv6's
 # was); each kept limit is at least 1.96x its 8-layer maximum.
 # Every fault landed at least 1,400x past its model's clean gap (a fault
-# within 3x would be read, not checked).  The expert archs are checked at
-# a dropless capacity factor E/k (at the production 1.25 a decode step
-# drops pairs that `forward` keeps)
+# within 3x would be read, not checked; the new requests' smallest,
+# musicgen's zeroed cache row, 0.02556, 8,670x past its limit).  The
+# expert archs are checked at a dropless capacity factor E/k (at the
+# production 1.25 a decode step drops pairs that `forward` keeps)
 LM_REL_L2_LIMIT = {"minitron-8b": 4.62e-6, "starcoder2-7b": 7.12e-6,
                    "granite-moe-1b-a400m": 2.24e-6, "arctic-480b": 8.28e-6,
-                   "rwkv6-7b": 5.34e-5, "hymba-1.5b": 1.00e-5}
+                   "rwkv6-7b": 5.34e-5, "hymba-1.5b": 1.00e-5,
+                   "stablelm-12b": 8.98e-6, "qwen2-vl-7b": 7.11e-6,
+                   "qwen2-vl-7b/embeds": 1.10e-5, "musicgen-medium": 2.95e-6,
+                   "musicgen-medium/embeds": 3.66e-6, "llama3-405b": 1.99e-5}
 LM_FAULTS = {arch: ("rope_position_plus_one", "cache_row_zeroed")
-             for arch in ("minitron-8b", "starcoder2-7b", "granite-moe-1b-a400m", "arctic-480b")}
+             for arch in ("minitron-8b", "starcoder2-7b", "granite-moe-1b-a400m", "arctic-480b",
+                          "stablelm-12b", "qwen2-vl-7b", "musicgen-medium", "llama3-405b",
+                          "musicgen-medium/embeds")}
 LM_FAULTS["rwkv6-7b"] = ("wkv_state_zeroed", "token_shift_zeroed")
 LM_FAULTS["hymba-1.5b"] = ("rope_position_plus_one", "mamba_state_zeroed", "cache_row_zeroed")
+# in decode M-RoPE's three ids are equal: only the prefill's cache tests it
+LM_FAULTS["qwen2-vl-7b/embeds"] = ("rope_position_plus_one", "cache_row_zeroed",
+                                   "mrope_hw_dropped")
 # the decode step's recurrent state, read and written once (decode_bound)
 LM_STATE_KEYS = ("s", "last_x", "last_xc", "m_h", "m_conv")
 
@@ -3143,21 +3190,64 @@ def plant(cache: dict, fault: str, prompt_len: int) -> None:
         cache["m_h"].zero_()
 
 
+def lm_inputs(prompt: torch.Tensor, positions: "torch.Tensor | None" = None) -> dict:
+    """The prefill's (and `forward`'s) inputs: token ids (B, S), or an
+    embedding frontend's embeddings (B, S, d) with their positions (M-RoPE's
+    (B, S, 3); none for RoPE's default)."""
+    if prompt.dim() == 2:
+        return {"tokens": prompt}
+    return {"embeds": prompt, **({} if positions is None else {"positions": positions})}
+
+
+def step_input(model, tok: torch.Tensor, embeds: bool) -> dict:
+    """A decode step's input for the greedy tokens ``tok`` (B,): their ids,
+    or after an embeddings prompt their embedding rows (``embed=``)."""
+    return make_lm_golden.decode_input(model.cfg.frontend if embeds else None, model.embed, tok)
+
+
+def frontend_prompt(cfg, batch: int, s: int, seed: int) -> tuple:
+    """An embedding frontend's prompt made on the card in the model's
+    dtype: (seeded N(0, 1) embeddings (batch, s, d), qwen2-vl's M-RoPE ids
+    of an image of `LM_IMAGE_GRID` patches then text, or None)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + LM_FRAME_SEED)
+    embeds = torch.randn((batch, s, cfg.d_model), generator=g, device=DEVICE).to(cfg.torch_dtype)
+    positions = None
+    if cfg.rope_kind == "mrope":
+        positions = torch.as_tensor(make_lm_golden.vision_positions(batch, s, LM_IMAGE_GRID),
+                                    device=DEVICE)
+    return embeds, positions
+
+
+@contextlib.contextmanager
+def mrope_hw_dropped():
+    """A planted fault: M-RoPE rotates by (t, t, t) in place of (t, h, w)."""
+    real = lm_blocks.apply_mrope
+    lm_blocks.apply_mrope = lambda x, p3, theta: real(x, p3[..., :1].expand(p3.shape), theta)
+    try:
+        yield
+    finally:
+        lm_blocks.apply_mrope = real
+
+
 def forced_decode(model, prompt: torch.Tensor, fed: torch.Tensor, max_len: int,
-                  fault: str) -> torch.Tensor:
-    """Prefill ``prompt``, then decode the tokens ``fed`` (1, n - 1) one by
-    one with ``fault`` planted: the n steps' logits (n, V), the prefill's
-    first.  ``rope_position_plus_one``: decode rotates q and k one
-    position too far; the others are planted in the cache (`plant`)."""
+                  fault: str, positions: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Prefill ``prompt`` (`lm_inputs`), then decode the tokens ``fed``
+    (1, n - 1) one by one (their embedding rows after an embeddings
+    prompt) with ``fault`` planted: the n steps' logits (n, V), the
+    prefill's first.  ``rope_position_plus_one``: decode rotates q and k
+    one position too far; ``mrope_hw_dropped``: the prefill rotates by
+    (t, t, t); the others are planted in the cache (`plant`)."""
     if fault == "rope_position_plus_one":
         real = model._positions
         model._positions = lambda b, s, offset=0: real(b, s, offset + 1 if s == 1 else offset)
+    embeds = prompt.dim() == 3
     try:
-        logits, cache = model.prefill(tokens=prompt, max_len=max_len)
+        with mrope_hw_dropped() if fault == "mrope_hw_dropped" else contextlib.nullcontext():
+            logits, cache = model.prefill(**lm_inputs(prompt, positions), max_len=max_len)
         plant(cache, fault, prompt.shape[1])
         out = [logits[0]]
         for i in range(fed.shape[1]):
-            logits, cache = model.decode_step(cache, token=fed[:, i:i + 1])
+            logits, cache = model.decode_step(cache, **step_input(model, fed[:, i], embeds))
             out.append(logits[0])
     finally:
         model.__dict__.pop("_positions", None)
@@ -3173,34 +3263,51 @@ def synced(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def greedy_chain(model, tokens: torch.Tensor, steps: int, max_len: int) -> tuple:
-    """Prefill then ``steps`` greedy decode steps by hand: (tokens (B, steps),
-    each step's logits, prefill ms, each decode step's ms)."""
-    logits, prefill_ms = synced(lambda: model.prefill(tokens=tokens, max_len=max_len))
+def greedy_chain(model, prompt: torch.Tensor, steps: int, max_len: int,
+                 positions: "torch.Tensor | None" = None) -> tuple:
+    """Prefill ``prompt`` (token ids, or embeddings with ``positions``:
+    `lm_inputs`) then ``steps`` greedy decode steps by hand, an embeddings
+    prompt feeding each token's embedding row: (tokens (B, steps), each
+    step's logits, prefill ms, each decode step's ms)."""
+    embeds = prompt.dim() == 3
+    logits, prefill_ms = synced(lambda: model.prefill(**lm_inputs(prompt, positions),
+                                                      max_len=max_len))
     logits, cache = logits
     out, steps_logits, decode_ms = [], [logits], []
     for i in range(steps):
         tok = torch.argmax(logits.float(), dim=-1)
         out.append(tok)
         if i + 1 < steps:
-            (logits, cache), ms = synced(lambda: model.decode_step(cache, token=tok[:, None]))
+            (logits, cache), ms = synced(lambda: model.decode_step(
+                cache, **step_input(model, tok, embeds)))
             steps_logits.append(logits)
             decode_ms.append(ms)
     return torch.stack(out, dim=1).cpu().numpy(), steps_logits, prefill_ms, decode_ms
 
 
 def against_forward(model, prompt: torch.Tensor, chain_tokens: np.ndarray, chain_logits,
-                    max_len: int) -> dict:
+                    max_len: int, positions: "torch.Tensor | None" = None,
+                    key: "str | None" = None) -> dict:
     """One request's decode logits against `forward` over its whole
-    sequence (prompt and the tokens fed back): the largest relative L2 gap
-    of a position (`rel_l2`), and the same for a decode of those tokens
-    with each of the model's `LM_FAULTS` planted.  The tokens must agree
+    sequence (prompt and the tokens fed back; after an embeddings prompt
+    their embedding rows, at the positions decode gives them: the cache
+    position, on all three M-RoPE axes): the largest relative L2 gap of a
+    position (`rel_l2`), and the same for a decode of those tokens with
+    each of the request's `LM_FAULTS` planted (``key``: the model's name,
+    with ``/embeds`` for a frontend's request).  The tokens must agree
     wherever forward's top-2 margin exceeds twice the largest logit gap
     measured, which no gap of that size can flip."""
-    name = model.cfg.name
+    name = key or model.cfg.name
     n = len(chain_logits)
     fed = torch.as_tensor(chain_tokens[:1, :n - 1], device=DEVICE)
-    full, _, _ = model.forward(tokens=torch.cat([prompt, fed], dim=1))
+    if prompt.dim() == 3:
+        seq = lm_inputs(torch.cat([prompt, model.embed[fed]], dim=1))
+        if positions is not None:
+            seq["positions"] = torch.cat(
+                [positions, model._positions(1, n - 1, offset=prompt.shape[1])], dim=1)
+    else:
+        seq = {"tokens": torch.cat([prompt, fed], dim=1)}
+    full, _, _ = model.forward(**seq)
     want = full[0, prompt.shape[1] - 1:]                      # (n, V)
     got = torch.stack([lg[0] for lg in chain_logits])         # (n, V)
     err = float((got.float() - want.float()).abs().max())
@@ -3208,7 +3315,7 @@ def against_forward(model, prompt: torch.Tensor, chain_tokens: np.ndarray, chain
     sure = ((top2[:, 0] - top2[:, 1]) > 2 * err).cpu().numpy()
     agree = torch.argmax(want.float(), -1).cpu().numpy() == chain_tokens[0, :n]
     gaps = rel_l2(got, want)
-    faults = {f: rel_l2(forced_decode(model, prompt, fed, max_len, f), want)
+    faults = {f: rel_l2(forced_decode(model, prompt, fed, max_len, f, positions), want)
               for f in LM_FAULTS[name]}
     return {"prompt": prompt.shape[1], "positions": n, "max_rel_l2": float(gaps.max()),
             "limit": LM_REL_L2_LIMIT.get(name),
@@ -3233,13 +3340,14 @@ def check_decode(name: str, r: dict) -> None:
     check(r["sure_tokens_disagree"] == 0, f"{name}: a sure greedy token differs")
 
 
-def decode_check(cfg, seed: int) -> dict:
+def decode_check(cfg, seed: int, frontend: bool = False) -> dict:
     """`against_forward` on the model's check request (`LM_CHECK`), its
-    prompt drawn from ``seed`` as the smoke run draws it, on a float32
-    model drawn from ``seed`` (the served bf16 draw before its rounding),
-    the expert archs at a dropless capacity factor E/k.  The caller frees
-    the served model first: arctic's 56 GB of float32 do not fit beside
-    its 28 GB of bf16."""
+    prompt drawn from ``seed`` as the smoke run draws it (with
+    ``frontend``, the frontend's embeddings: `frontend_prompt`), on a
+    float32 model drawn from ``seed`` (the served bf16 draw before its
+    rounding), the expert archs at a dropless capacity factor E/k.  The
+    caller frees the served model first: arctic's 56 GB of float32 do not
+    fit beside its 28 GB of bf16."""
     cfg = dataclasses.replace(cfg, dtype="float32")
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -3248,10 +3356,16 @@ def decode_check(cfg, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     model = CausalLM(cfg, init_params(torch.Generator(device=DEVICE).manual_seed(seed),
                                       cfg, DEVICE), device=DEVICE)
-    prompt = torch.as_tensor(np.random.RandomState(seed).randint(
-        0, cfg.vocab, (1, n_prompt)).astype(np.int32), device=DEVICE)
-    toks, logits, _, _ = greedy_chain(model, prompt, n_new, max_len)
-    out = {"dtype": cfg.dtype, **against_forward(model, prompt, toks, logits, max_len),
+    positions = None
+    if frontend:
+        prompt, positions = frontend_prompt(cfg, 1, n_prompt, seed)
+    else:
+        prompt = torch.as_tensor(np.random.RandomState(seed).randint(
+            0, cfg.vocab, (1, n_prompt)).astype(np.int32), device=DEVICE)
+    toks, logits, _, _ = greedy_chain(model, prompt, n_new, max_len, positions)
+    out = {"dtype": cfg.dtype,
+           **against_forward(model, prompt, toks, logits, max_len, positions,
+                             cfg.name + "/embeds" if frontend else None),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     if cfg.moe is not None:
         out["capacity_factor"] = cfg.moe.capacity_factor
@@ -3306,16 +3420,17 @@ def decode_bound(model, cache: dict, batch: int, routes: "RouteReadings") -> flo
     return (weights + 2 * state) / HBM_BYTES_PER_S * 1e3
 
 
-def decode_profile(model, cache: dict, token: torch.Tensor) -> dict:
-    """One decode step under `torch.profiler`: its kernels, the device's
-    busy ms and the step's wall ms (the device's idle share between)."""
+def decode_profile(model, cache: dict, step: dict) -> dict:
+    """One decode step (``step``: its ``token`` or ``embed``) under
+    `torch.profiler`: its kernels, the device's busy ms and the step's
+    wall ms (the device's idle share between)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode_step(cache, token=token)
+        model.decode_step(cache, **step)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -3324,10 +3439,56 @@ def decode_profile(model, cache: dict, token: torch.Tensor) -> dict:
             "idle_share": None if not device else 1 - busy_ms / wall_ms}
 
 
+def mrope_cost(cfg) -> dict:
+    """`apply_mrope` against `apply_rope` on one decode step's q (batch 4,
+    one token): host ms a call ending in a synchronize, median of 50.
+    `apply_mrope` builds its section ids on the host and copies them to
+    the card on every call, twice a layer a step (q and k)."""
+    q = torch.randn((LM_BATCH, 1, cfg.n_heads, cfg.head_dim), device=DEVICE).to(cfg.torch_dtype)
+    pos = torch.zeros((LM_BATCH, 1), dtype=torch.int32, device=DEVICE)
+    pos3 = pos[..., None].expand(LM_BATCH, 1, 3)
+    return {"mrope_ms_per_call": wall_ms(lambda: lm_rope.apply_mrope(q, pos3, cfg.rope_theta),
+                                         reps=50),
+            "rope_ms_per_call": wall_ms(lambda: lm_rope.apply_rope(q, pos, cfg.rope_theta),
+                                        reps=50),
+            "calls_per_decode_step": 2 * cfg.n_layers}
+
+
+def frontend_timing(model) -> dict:
+    """(f), in the served dtype at batch 4: the frontend's prefill from
+    `frontend_prompt` and `LM_NEW` greedy decode steps fed embedding rows
+    (`greedy_chain`), twice (the first warms up); decode ms a token beside
+    `decode_bound`, one profiled step's idle share; for M-RoPE its cost a
+    call (`mrope_cost`)."""
+    cfg = model.cfg
+    embeds, positions = frontend_prompt(cfg, LM_BATCH, LM_PROMPT, SEED)
+    greedy_chain(model, embeds, 2, LM_MAX_LEN, positions)                     # warm-up
+    toks, _, prefill_ms, decode_ms = greedy_chain(model, embeds, LM_NEW, LM_MAX_LEN, positions)
+    _, cache = model.prefill(**lm_inputs(embeds, positions), max_len=LM_MAX_LEN)
+    step = step_input(model, torch.as_tensor(toks[:, 0], device=DEVICE), True)
+    bound_ms = decode_bound(model, cache, LM_BATCH, RouteReadings())
+    profiled = decode_profile(model, cache, step)
+    out = {"batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+           "embeds": {"shape": list(embeds.shape), "dtype": str(embeds.dtype).removeprefix(
+               "torch."), "device": embeds.device.type},
+           "prefill_ms": prefill_ms, "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / (
+               prefill_ms / 1e3),
+           "decode_ms_per_token_median": statistics.median(decode_ms),
+           "decode_ms_per_token_min": min(decode_ms), "decode_bound_ms": bound_ms,
+           "decode_profile": profiled}
+    if positions is not None:
+        t, h, w = positions.unbind(-1)
+        out["positions"] = {"shape": list(positions.shape), "image_grid": list(LM_IMAGE_GRID),
+                            "distinct_thw": bool((t != h).any() and (h != w).any())}
+        out["mrope"] = mrope_cost(cfg)
+    return out
+
+
 def lm_model(arch: str) -> dict:
-    """(a) and (d): one model at full width (depth cut by `LM_LAYERS`),
-    random bf16 weights drawn on the card from `SEED`, served by the
-    engine and held to a hand-made chain and to `forward`."""
+    """(a), (d) and (e): one model at full width (depth cut by
+    `LM_LAYERS`), random bf16 weights drawn on the card from `SEED`, served
+    by the engine and held to a hand-made chain and to `forward`; for an
+    embedding frontend (`LM_FRONTENDS`) also (f), its embeddings path."""
     t_entry = time.perf_counter()
     cfg = cut_depth(get_config(arch), LM_LAYERS.get(arch))
     torch.cuda.reset_peak_memory_stats()
@@ -3365,14 +3526,19 @@ def lm_model(arch: str) -> dict:
     with RouteReadings() as step_routes:
         model.decode_step(cache, token=torch.as_tensor(chain[:LM_BATCH, :1], device=DEVICE))
     bound_ms = decode_bound(model, cache, LM_BATCH, step_routes)
-    profiled = decode_profile(model, cache, torch.as_tensor(chain[:LM_BATCH, 1:2], device=DEVICE))
+    profiled = decode_profile(model, cache,
+                              {"token": torch.as_tensor(chain[:LM_BATCH, 1:2], device=DEVICE)})
+    del cache
+    frontend = frontend_timing(model) if arch in LM_FRONTENDS else None
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     peak = torch.cuda.max_memory_allocated()
     ring_slots = model.cache_len(LM_CHECK[arch][2])
-    del cache, model, engine
+    del model, engine
     gc.collect()
     torch.cuda.empty_cache()
-    vs_forward = decode_check(cfg, SEED)
+    vs_forward = released(lambda: decode_check(cfg, SEED))
+    if frontend is not None:
+        frontend["decode_vs_forward"] = released(lambda: decode_check(cfg, SEED, frontend=True))
     out = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype, "parameters": n,
            "n_params_formula": cfg.n_params(), "weight_bytes": weight_bytes,
@@ -3418,6 +3584,14 @@ def lm_model(arch: str) -> dict:
     if cfg.block_kind == "hybrid":
         check(out["ring_wrapped"], f"{arch}: the check request did not wrap the ring")
     check_decode(arch, vs_forward)
+    if frontend is not None:
+        out["frontend"] = frontend
+        check(frontend["embeds"]["device"] == "cuda"
+              and frontend["embeds"]["dtype"] == str(cfg.torch_dtype).removeprefix("torch."),
+              f"{arch}: the frontend's embeddings are not on the card in the model's dtype")
+        check(cfg.rope_kind != "mrope" or frontend["positions"]["distinct_thw"],
+              f"{arch}: the prompt's M-RoPE ids are not distinct over (t, h, w)")
+        check_decode(arch + "/embeds", frontend["decode_vs_forward"])
     return out
 
 
@@ -3469,13 +3643,17 @@ def lm_golden() -> dict:
         model = CausalLM(cfg, params_from_reference(make_lm_golden.param_tree(arrays), cfg,
                                                     DEVICE), device=DEVICE)
         want = arrays["tokens"]
-        toks, logits, _, _ = greedy_chain(model, torch.as_tensor(arrays["prompt"], device=DEVICE),
-                                          want.shape[1], arrays["prompt"].shape[1] + want.shape[1])
+        inputs = {k: torch.as_tensor(v, device=DEVICE)
+                  for k, v in make_lm_golden.prefill_inputs(arrays).items()}
+        prompt = inputs.get("tokens", inputs.get("embeds"))
+        toks, logits, _, _ = greedy_chain(model, prompt, want.shape[1],
+                                          fx.prompt + want.shape[1], inputs.get("positions"))
         want_logits = np.concatenate([arrays["prefill_logits"][:, None],
                                       arrays["decode_logits"][:, :want.shape[1] - 1]], axis=1)
         got_logits = torch.stack(logits, dim=1).cpu().numpy()
         err = float(np.abs(got_logits - want_logits).max())
         out[fx.name] = {"arch": cfg.name, "dtype": cfg.dtype, "prompt": fx.prompt,
+                        "inputs": sorted(inputs),
                         "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
                         "token_mismatches": int((toks != want).sum()), "max_abs_err": err,
                         "tolerance": LM_GOLDEN_TOL}
@@ -3517,22 +3695,24 @@ def lm_calibrate(seeds: int) -> int:
     """``--lm-calibrate N``: the readings that `LM_REL_L2_LIMIT` is set
     from.  For each of the phase's models (at its depth, with its check
     request, `LM_CHECK`) and each of N seeds of weights and prompt:
-    `decode_check`'s clean gap and each planted fault's.  One line per
-    run, then one with the largest clean gap and each fault's smallest gap
-    per model."""
+    `decode_check`'s clean gap and each planted fault's, and for the
+    embedding frontends (`LM_FRONTENDS`) the same on their embeddings
+    request (``<arch>/embeds``).  One line per run, then
+    one with the largest clean gap and each fault's smallest gap per
+    request."""
     runs, summary = [], {}
     for arch in ("minitron-8b", "starcoder2-7b", *LM_NEW_MODELS):
         cfg = cut_depth(get_config(arch), LM_LAYERS.get(arch))
-        for seed in range(seeds):
-            run = {"arch": arch, "layers": cfg.n_layers, "seed": seed, **decode_check(cfg, seed)}
-            emit(run)
-            runs.append(run)
-            gc.collect()
-            torch.cuda.empty_cache()
-        mine = [r for r in runs if r["arch"] == arch]
-        summary[arch] = {"clean_max": max(r["max_rel_l2"] for r in mine),
-                         **{f + "_min": min(r["faults_max_rel_l2"][f] for r in mine)
-                            for f in LM_FAULTS[arch]}}
+        for key in (arch, arch + "/embeds") if arch in LM_FRONTENDS else (arch,):
+            for seed in range(seeds):
+                run = {"arch": key, "layers": cfg.n_layers, "seed": seed,
+                       **released(lambda: decode_check(cfg, seed, frontend=key != arch))}
+                emit(run)
+                runs.append(run)
+            mine = [r for r in runs if r["arch"] == key]
+            summary[key] = {"clean_max": max(r["max_rel_l2"] for r in mine),
+                            **{f + "_min": min(r["faults_max_rel_l2"][f] for r in mine)
+                               for f in LM_FAULTS[key]}}
     emit({"phase": "lm_calibrate", "card": gpu_line(), "seeds": seeds, "summary": summary})
     return 0
 

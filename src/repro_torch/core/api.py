@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -180,6 +181,34 @@ class ServableCircuit:
         server = CircuitServer(reg, device=device)
         kwargs = {} if clock is None else {"clock": clock}
         return AsyncCircuitServer(server, **kwargs)
+
+    # -- persistence ---------------------------------------------------
+    def save(
+        self, path: str, *,
+        validated_backend: "str | runtime.EvalBackend" = "torch-ref",
+    ) -> str:
+        """Deprecated alias of `save_servable`, as in the reference.
+        Prefer `save_servable(sc, path)` for single bundles, or an
+        `repro_torch.serve.artifacts.ArtifactStore` for anything
+        fleet-shaped."""
+        warnings.warn(
+            "ServableCircuit.save() is deprecated; use "
+            "repro_torch.core.api.save_servable(circuit, path) or an "
+            "repro_torch.serve.artifacts.ArtifactStore",
+            DeprecationWarning, stacklevel=2,
+        )
+        return save_servable(self, path, validated_backend=validated_backend)
+
+    @classmethod
+    def load(cls, path: str) -> "ServableCircuit":
+        """Deprecated alias of `load_servable`, as in the reference."""
+        warnings.warn(
+            "ServableCircuit.load() is deprecated; use "
+            "repro_torch.core.api.load_servable(path) or an "
+            "repro_torch.serve.artifacts.ArtifactStore",
+            DeprecationWarning, stacklevel=2,
+        )
+        return load_servable(path)
 
 
 def servable_from_arrays(

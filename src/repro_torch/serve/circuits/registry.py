@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import warnings
 from typing import Iterator, Sequence
 
 from repro_torch.core.api import ServableCircuit
@@ -137,6 +138,41 @@ class CircuitRegistry:
             if tenant not in self._entries:
                 raise KeyError(f"unknown tenant {tenant!r}")
             self._qos[tenant] = qos
+
+    # -- persistence ---------------------------------------------------
+    def save_dir(self, path: str, *, validated_backend: str = "torch-ref") -> list[str]:
+        """Deprecated alias of ``ArtifactStore(path).put_registry(self)``,
+        as in the reference: the directory becomes a snapshot of the
+        registry in the store's layout (tenants no longer registered are
+        dropped and their bundles collected).  Returns one written bundle
+        path per member.  Names ending in the reserved ``@m<digits>``
+        member suffix are refused."""
+        warnings.warn(
+            "CircuitRegistry.save_dir() is deprecated; use "
+            "repro_torch.serve.artifacts.ArtifactStore(path).put_registry(registry)",
+            DeprecationWarning, stacklevel=2,
+        )
+        from repro_torch.serve.artifacts import ArtifactStore
+
+        return ArtifactStore(path).put_registry(self, validated_backend=validated_backend)
+
+    @classmethod
+    def load_dir(cls, path: str) -> "CircuitRegistry":
+        """Deprecated alias of ``ArtifactStore(path).load_registry()``, as
+        in the reference: a store manifest loads through `ArtifactStore`,
+        a legacy flat directory of ``<tenant>.circuit.npz`` bundles through
+        `repro_torch.serve.artifacts.load_legacy_registry_dir`."""
+        warnings.warn(
+            "CircuitRegistry.load_dir() is deprecated; use "
+            "repro_torch.serve.artifacts.ArtifactStore(path).load_registry() "
+            "(or load_legacy_registry_dir for pre-store directories)",
+            DeprecationWarning, stacklevel=2,
+        )
+        from repro_torch.serve.artifacts import ArtifactStore, load_legacy_registry_dir
+
+        if ArtifactStore.is_store(path):
+            return ArtifactStore(path).load_registry()
+        return load_legacy_registry_dir(path)
 
     # -- queries -------------------------------------------------------
     def __contains__(self, tenant: str) -> bool:

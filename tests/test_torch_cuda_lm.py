@@ -10,14 +10,18 @@ reference package, so it runs where only torch is installed:
     parameter lives there (the float32 leaves of the experts and SSM
     blocks in float32);
   * at the same batch the engine's greedy tokens equal a hand-made
-    prefill + decode argmax chain, in bfloat16, for minitron and the four
-    expert and SSM archs;
+    prefill + decode argmax chain, in bfloat16, for minitron, the four
+    expert and SSM archs, stablelm, llama3 and both embedding frontends;
+  * the frontends' path: ``prefill(embeds=, positions=)`` (qwen2-vl's at
+    distinct M-RoPE ids) then ``decode_step(embed=)`` decodes as `forward`
+    over the whole sequence computes, in float32;
   * a prompt long enough for the chunked prefill (starcoder2's smoke
     window wrapped many times) decodes as `forward` computes, in float32;
   * the router's top k on the card breaks planted ties as on the CPU (to
     the lower expert id) and drops the same pairs;
-  * each committed reference fixture (`tests/torch_golden/lm_*_smoke.npz`)
-    in float32: the same greedy tokens, logits within 1e-5.
+  * each committed reference fixture (`tests/torch_golden/lm_*_smoke.npz`,
+    the frontends' from embeddings) in float32: the same greedy tokens,
+    logits within 1e-5.
 """
 import dataclasses
 import os
@@ -45,20 +49,25 @@ def _card():
 
 
 def _chain(model, prompts, steps, max_len):
-    logits, cache = model.prefill(tokens=prompts, max_len=max_len)
+    """Prefill ``prompts`` (token ids, or the prefill's inputs as a dict),
+    then greedy decode steps: a frontend feeds each token's embedding row."""
+    inputs = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    logits, cache = model.prefill(**inputs, max_len=max_len)
     toks, seen = [], [logits]
     for i in range(steps):
         tok = torch.argmax(logits.float(), dim=-1)
         toks.append(tok)
         if i + 1 < steps:
-            logits, cache = model.decode_step(cache, token=tok[:, None])
+            logits, cache = model.decode_step(
+                cache, **make_lm_golden.decode_input(model.cfg.frontend, model.embed, tok))
             seen.append(logits)
     return torch.stack(toks, 1).cpu().numpy(), seen
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["minitron-8b", "granite-moe-1b-a400m", "arctic-480b",
-                                  "rwkv6-7b", "hymba-1.5b"])
+                                  "rwkv6-7b", "hymba-1.5b", "stablelm-12b", "llama3-405b",
+                                  "qwen2-vl-7b", "musicgen-medium"])
 def test_the_engine_on_the_card_equals_a_hand_made_chain_in_bf16(arch):
     _card()
     cfg = dataclasses.replace(get_config(arch).smoke(), dtype="bfloat16")
@@ -96,6 +105,35 @@ def test_a_chunked_prefill_on_the_card_decodes_as_forward_computes():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "musicgen-medium"])
+def test_the_frontend_prefill_and_embed_decode_on_the_card_match_forward(arch):
+    """Seeded embeddings made on the card, qwen2-vl's prompt at an image
+    grid's distinct (t, h, w) ids; 6 decode steps feed the greedy tokens'
+    embedding rows at the cache position (on all three M-RoPE axes); the
+    logits of every step within 1e-4 of `forward` over the whole
+    sequence, in float32."""
+    _card()
+    cfg = get_config(arch).smoke()
+    model = CausalLM(cfg, init_params(torch.Generator(device="cuda").manual_seed(3), cfg))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    s, steps = 20, 6
+    inputs = {"embeds": torch.randn((2, s, cfg.d_model), generator=g, device="cuda")}
+    if cfg.rope_kind == "mrope":
+        inputs["positions"] = torch.as_tensor(make_lm_golden.vision_positions(2, s, (3, 4)),
+                                              device="cuda")
+    toks, logits = _chain(model, inputs, steps, s + steps)
+    fed = model.embed[torch.as_tensor(toks[:, :steps - 1], device="cuda")]
+    seq = {"embeds": torch.cat([inputs["embeds"], fed], dim=1)}
+    if "positions" in inputs:
+        later = torch.arange(s, s + steps - 1, dtype=torch.int32, device="cuda")
+        seq["positions"] = torch.cat([inputs["positions"],
+                                      later[None, :, None].expand(2, steps - 1, 3)], dim=1)
+    full, _, _ = model.forward(**seq)
+    got = torch.stack(logits, 1)
+    assert float((got - full[:, s - 1:]).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
 def test_the_router_breaks_ties_and_drops_as_on_the_cpu():
     _card()
     rng = np.random.RandomState(0)
@@ -118,8 +156,9 @@ def test_the_reference_fixture_on_the_card(fx):
     cfg = fx.config(get_config)
     model = CausalLM(cfg, params_from_reference(make_lm_golden.param_tree(arrays), cfg))
     n_new = arrays["tokens"].shape[1]
-    toks, logits = _chain(model, torch.as_tensor(arrays["prompt"], device="cuda"), n_new,
-                          arrays["prompt"].shape[1] + n_new)
+    toks, logits = _chain(model, {k: torch.as_tensor(v, device="cuda") for k, v in
+                                  make_lm_golden.prefill_inputs(arrays).items()},
+                          n_new, fx.prompt + n_new)
     np.testing.assert_array_equal(toks, arrays["tokens"])
     want = np.concatenate([arrays["prefill_logits"][:, None],
                            arrays["decode_logits"][:, :n_new - 1]], axis=1)

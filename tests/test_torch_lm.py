@@ -142,6 +142,36 @@ def test_mrope_positions_match_the_reference():
     _close(logits, r_logits)
 
 
+def test_mrope_prefill_and_embed_decode_match_the_reference():
+    """qwen2-vl: ``prefill(embeds, positions)`` with an image grid at
+    distinct (t, h, w) ids, then 4 ``decode_step(embed=)`` steps at the
+    cache position on all three axes, against the reference's
+    ``lm.prefill`` and ``lm.decode_step`` on the same inputs: logits and
+    every cache tensor within TOL."""
+    rcfg, rparams, cfg, model = _models("qwen2-vl-7b")
+    _, embeds = _inputs(cfg)
+    p = S - 4
+    pos3 = make_lm_golden.vision_positions(B, p, (3, 5))
+    assert len({tuple(r) for r in pos3[0, :15, 1:]}) == 15 and (pos3[0, :15, 0] == 0).all()
+    r_last, r_cache = RLM.prefill(rparams, rcfg, embeds=jnp.asarray(embeds[:, :p]),
+                                  positions=jnp.asarray(pos3), max_len=S)
+    last, cache = model.prefill(embeds=torch.from_numpy(embeds[:, :p]),
+                                positions=torch.from_numpy(pos3), max_len=S)
+    _close(last, r_last)
+    _close_caches(cache, r_cache)
+    # M-RoPE's ids reach the cache: at (t, t, t) its keys differ
+    _, flat = model.prefill(embeds=torch.from_numpy(embeds[:, :p]),
+                            positions=torch.from_numpy(pos3[..., :1].repeat(3, axis=-1)),
+                            max_len=S)
+    assert float((flat["k"] - cache["k"]).abs().max()) > 1e-2
+    for t in range(p, S):
+        r_lg, r_cache = RLM.decode_step(rparams, rcfg, r_cache,
+                                        embed=jnp.asarray(embeds[:, t:t + 1]))
+        lg, cache = model.decode_step(cache, embed=torch.from_numpy(embeds[:, t:t + 1]))
+        _close(lg, r_lg)
+        _close_caches(cache, r_cache)
+
+
 # -- attention -----------------------------------------------------------------
 
 def _qkv(seed, b=2, sq=64, skv=64, hq=8, hkv=4, hd=16):
@@ -387,7 +417,8 @@ def test_the_fixture_is_what_its_script_writes(name):
 def test_the_port_reproduces_the_fixture(name, monkeypatch):
     """Greedy tokens equal, logits within TOL; granite-moe's decode steps
     drop pairs (one slot per expert), rwkv6's prompt pads, hymba's ring
-    wraps."""
+    wraps; the frontends prefill from embeddings (qwen2-vl's at distinct
+    M-RoPE ids) and decode each greedy token's embedding row."""
     fx = FIXTURES[name]
     golden = dict(np.load(fx.path))
     cfg = fx.config(get_config)
@@ -402,15 +433,20 @@ def test_the_port_reproduces_the_fixture(name, monkeypatch):
         return plan
 
     monkeypatch.setattr(moe, "route", counting)
-    prompt = torch.from_numpy(golden["prompt"])
-    logits, cache = model.prefill(tokens=prompt, max_len=prompt.shape[1] + make_lm_golden.NEW)
+    inputs = {k: torch.from_numpy(v) for k, v in make_lm_golden.prefill_inputs(golden).items()}
+    assert ("embeds" in inputs) == (cfg.frontend is not None)
+    assert ("positions" in inputs) == (cfg.rope_kind == "mrope")
+    if "positions" in inputs:
+        assert (inputs["positions"][..., 1] != inputs["positions"][..., 2]).any()
+    logits, cache = model.prefill(**inputs, max_len=fx.prompt + make_lm_golden.NEW)
     _close(logits, golden["prefill_logits"])
     n_prefill = len(dropped)
     tokens = []
     for i in range(make_lm_golden.NEW):
         tok = torch.argmax(logits, dim=-1)
         tokens.append(tok.numpy())
-        logits, cache = model.decode_step(cache, token=tok[:, None])
+        logits, cache = model.decode_step(
+            cache, **make_lm_golden.decode_input(cfg.frontend, model.embed, tok))
         _close(logits, golden["decode_logits"][:, i])
     np.testing.assert_array_equal(np.stack(tokens, axis=1), golden["tokens"])
     if cfg.moe is not None:
