@@ -13,6 +13,11 @@ Host words stay ``uint32``; they cross into torch as ``int32`` with the
 same bits (``.view(np.int32)``).  A `PackedDataset` and its train/val
 masks are packed on the host and uploaded once to the device the search
 runs on.
+
+Under `recording` (`serve/observability/trace.py`) the work records spans:
+``encoding.fit_encoder``, ``encoding.encode``, ``encoding.pack`` (each
+`pack_bits_rows`), ``encoding.h2d`` (the copies to the device; the first
+on the card also makes the CUDA context) and ``encoding.split_masks``.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.serve.observability.trace import active
 
 STRATEGIES = ("quantize", "quantile", "gray", "onehot")
 WORD = 32
@@ -84,14 +90,15 @@ def fit_encoder(x_train: np.ndarray, cfg: EncodingConfig) -> Encoder:
     if x.ndim != 2:
         raise ValueError(f"expected a 2-D feature matrix, got {x.shape}")
     nb = cfg.n_buckets
-    if cfg.strategy in ("quantize", "gray"):
-        lo, hi = x.min(axis=0), x.max(axis=0)
-        span = np.where(hi > lo, hi - lo, 1.0)
-        edges = lo[:, None] + span[:, None] * (np.arange(1, nb) / nb)[None, :]
-    else:  # equal-frequency
-        edges = np.quantile(x, np.arange(1, nb) / nb, axis=0).T  # (F, nb-1)
-    # strictly non-decreasing thresholds per feature
-    edges = np.maximum.accumulate(edges, axis=1)
+    with active().span("encoding.fit_encoder", cat="encoding"):
+        if cfg.strategy in ("quantize", "gray"):
+            lo, hi = x.min(axis=0), x.max(axis=0)
+            span = np.where(hi > lo, hi - lo, 1.0)
+            edges = lo[:, None] + span[:, None] * (np.arange(1, nb) / nb)[None, :]
+        else:  # equal-frequency
+            edges = np.quantile(x, np.arange(1, nb) / nb, axis=0).T  # (F, nb-1)
+        # strictly non-decreasing thresholds per feature
+        edges = np.maximum.accumulate(edges, axis=1)
     return Encoder(edges.astype(np.float32), _code_table(cfg), cfg.strategy, cfg.bits)
 
 
@@ -101,11 +108,12 @@ def encode(enc: Encoder, x: np.ndarray) -> np.ndarray:
     r, f = x.shape
     if f != enc.n_features:
         raise ValueError(f"encoder expects {enc.n_features} features, got {f}")
-    buckets = np.empty((r, f), dtype=np.int64)
-    for j in range(f):
-        buckets[:, j] = np.searchsorted(enc.thresholds[j], x[:, j], side="right")
-    bits = enc.codes[buckets]                 # (R, F, bits)
-    return bits.reshape(r, f * enc.bits).astype(np.uint8)
+    with active().span("encoding.encode", cat="encoding"):
+        buckets = np.empty((r, f), dtype=np.int64)
+        for j in range(f):
+            buckets[:, j] = np.searchsorted(enc.thresholds[j], x[:, j], side="right")
+        bits = enc.codes[buckets]                 # (R, F, bits)
+        return bits.reshape(r, f * enc.bits).astype(np.uint8)
 
 
 def encode_batched(
@@ -150,11 +158,12 @@ def pack_bits_rows(bits: np.ndarray, w: int) -> np.ndarray:
     pad = w * WORD - r
     if pad < 0:
         raise ValueError(f"{r} rows do not fit in {w} words")
-    x = np.concatenate([bits, np.zeros((pad, b), np.uint8)], axis=0)
-    x = x.T.reshape(b, w, WORD).astype(np.uint32)
-    return np.ascontiguousarray((x << np.arange(WORD, dtype=np.uint32)[None, None, :]).sum(
-        axis=-1, dtype=np.uint32
-    ))
+    with active().span("encoding.pack", cat="encoding"):
+        x = np.concatenate([bits, np.zeros((pad, b), np.uint8)], axis=0)
+        x = x.T.reshape(b, w, WORD).astype(np.uint32)
+        return np.ascontiguousarray((x << np.arange(WORD, dtype=np.uint32)[None, None, :]).sum(
+            axis=-1, dtype=np.uint32
+        ))
 
 
 def unpack_words(words: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -168,9 +177,11 @@ def unpack_words(words: torch.Tensor, n_rows: int) -> torch.Tensor:
     return flat[..., :n_rows].to(torch.uint8)
 
 
-def _words(host: np.ndarray, device) -> torch.Tensor:
-    """uint32 host words → an int32 tensor with the same bits on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(host).view(np.int32)).to(device)
+def _words(device, *host: np.ndarray) -> "list[torch.Tensor]":
+    """uint32 host words → int32 tensors with the same bits on ``device``."""
+    with active().span("encoding.h2d", cat="encoding"):
+        return [torch.from_numpy(np.ascontiguousarray(h).view(np.int32)).to(device)
+                for h in host]
 
 
 class PackedDataset(NamedTuple):
@@ -221,12 +232,9 @@ def pack_dataset(
     y_bits = codes[y]                                     # (R, O)
     cls_bits = (y[:, None] == np.arange(n_classes)[None, :]).astype(np.uint8)
     mask_bits = np.ones((r, 1), dtype=np.uint8)
-    return PackedDataset(
-        x_words=_words(pack_bits_rows(bits, w), device),
-        y_words=_words(pack_bits_rows(y_bits, w), device),
-        class_words=_words(pack_bits_rows(cls_bits, w), device),
-        mask_words=_words(pack_bits_rows(mask_bits, w)[0], device),
-    )
+    return PackedDataset(*_words(
+        device, pack_bits_rows(bits, w), pack_bits_rows(y_bits, w),
+        pack_bits_rows(cls_bits, w), pack_bits_rows(mask_bits, w)[0]))
 
 
 def split_masks(
@@ -239,9 +247,10 @@ def split_masks(
     are drawn from numpy's ``RandomState(seed)``, as the reference draws
     them."""
     device = resolve_device(device)
-    rng = np.random.RandomState(seed)
-    is_val = rng.rand(n_rows) < val_fraction
-    tr = (~is_val)[:, None].astype(np.uint8)
-    va = is_val[:, None].astype(np.uint8)
-    return (_words(pack_bits_rows(tr, w)[0], device),
-            _words(pack_bits_rows(va, w)[0], device))
+    with active().span("encoding.split_masks", cat="encoding"):
+        rng = np.random.RandomState(seed)
+        is_val = rng.rand(n_rows) < val_fraction
+        tr = (~is_val)[:, None].astype(np.uint8)
+        va = is_val[:, None].astype(np.uint8)
+        m_tr, m_va = _words(device, pack_bits_rows(tr, w)[0], pack_bits_rows(va, w)[0])
+    return m_tr, m_va

@@ -37,6 +37,7 @@ from repro_torch.core.encoding import PackedDataset
 from repro_torch.core.genome import CircuitSpec, Genome, init_genome, opcodes
 from repro_torch.core.mutate import mutate_children
 from repro_torch.kernels.program import compile_program
+from repro_torch.serve.observability.trace import NOOP_SPAN, NULL_TRACER, active
 
 # The phases of one generation that `PhaseClock` books, in loop order.
 FIT_PHASES = ("mutate", "compile", "program_h2d", "launch", "fitness_reduce",
@@ -66,30 +67,119 @@ class EvolveState(NamedTuple):
     gen: np.int32            # generation counter
 
 
+_SPAN_NAMES = {p: f"search.{p}" for p in FIT_PHASES}
+# Spans read the process CPU clock on one generation in this many (and on
+# each search's first parent).  On the card's host a read beside torch's
+# spinning intra-op pool costs 70-100 µs and the clock steps in 10 ms
+# ticks: read on every lap, it slowed the search by a sixth (PERF.md §6).
+CPU_SAMPLE_EVERY = 16
+
+
 class PhaseClock:
     """Host seconds per phase of the search (`FIT_PHASES`), summed over
     generations.  `lap(phase)` books the time since the previous lap (or
     `start`) to ``phase``.  Device work is asynchronous, so ``launch`` and
     ``fitness_reduce`` are the host's enqueue time and ``readback``
-    includes the wait for the device."""
+    includes the wait for the device.
+
+    The clock reads the clock of the recorder that was `active` when it
+    was made (``time.perf_counter`` unless a test injects another).  While
+    that recorder is enabled, each lap is also a span ``search.<phase>``
+    from the same two reads, with ``gen`` (the generation it belongs to,
+    0 for a search's first parent) and ``search`` (`init_state` calls so
+    far); `init_span` and `generation_span` give the spans that enclose
+    them.  On a search's first parent and on every `CPU_SAMPLE_EVERY`-th
+    generation each of these spans also carries ``cpu_ns``, the process's
+    CPU time over it (`time.process_time_ns`: every thread, torch's
+    intra-op pool too).  Off, a lap adds one branch on the recorder's
+    ``enabled``."""
 
     def __init__(self):
+        self.tracer = active()
+        self._now = self.tracer.clock
         self.seconds = dict.fromkeys(FIT_PHASES, 0.0)
         self.laps = dict.fromkeys(FIT_PHASES, 0)
-        self._t = time.perf_counter()
+        self.searches = 0
+        self._gen = 0
+        self._cpu_on = False
+        self._t = self._t0 = self._now()
+        self._cpu = self._cpu0 = 0
 
     def start(self) -> None:
-        self._t = time.perf_counter()
+        self._t = self._t0 = self._now()
+        if self._cpu_on:
+            self._cpu = self._cpu0 = time.process_time_ns()
 
     def lap(self, phase: str) -> None:
-        t = time.perf_counter()
+        t = self._now()
         self.seconds[phase] += t - self._t
         self.laps[phase] += 1
+        if self.tracer.enabled:
+            if self._cpu_on:
+                cpu = time.process_time_ns()
+                self.tracer.complete(_SPAN_NAMES[phase], self._t, t, cat="search",
+                                     gen=self._gen, search=self.searches,
+                                     cpu_ns=cpu - self._cpu)
+                self._cpu = cpu
+            else:
+                self.tracer.complete(_SPAN_NAMES[phase], self._t, t, cat="search",
+                                     gen=self._gen, search=self.searches)
         self._t = t
+
+    def init_span(self):
+        """``with clock.init_span():`` around the evaluation of a search's
+        first parent: counts the search and records ``search.init`` (see
+        `generation_span`) at ``gen`` 0."""
+        self.searches += 1
+        if not self.tracer.enabled:
+            return NOOP_SPAN
+        return _GenerationSpan(self, "search.init", 0)
+
+    def generation_span(self, state_gen):
+        """``with clock.generation_span(state.gen):`` around one
+        generation: on exit it records ``search.generation`` from the
+        block's `start` to its last lap, with ``gen`` (``state_gen + 1``,
+        the count the generation reaches), ``search`` and, on a sampled
+        generation, ``cpu_ns``; the laps inside carry the same ``gen``.
+        Without an enabled recorder it is one shared no-op."""
+        if not self.tracer.enabled:
+            return NOOP_SPAN
+        return _GenerationSpan(self, "search.generation", int(state_gen) + 1)
 
     def mean_ms(self) -> dict[str, float]:
         """Mean milliseconds per lap of each phase."""
         return {k: 1e3 * s / max(self.laps[k], 1) for k, s in self.seconds.items()}
+
+    def __getstate__(self) -> dict:
+        # a clock is pickled (in a fitted classifier's records) as its sums;
+        # its recorder stays in the process that recorded
+        state = dict(self.__dict__)
+        del state["tracer"], state["_now"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state, tracer=NULL_TRACER, _now=NULL_TRACER.clock)
+
+
+class _GenerationSpan:
+    __slots__ = ("clock", "name", "gen")
+
+    def __init__(self, clock: PhaseClock, name: str, gen: int):
+        self.clock, self.name, self.gen = clock, name, gen
+
+    def __enter__(self) -> "_GenerationSpan":
+        self.clock._gen = self.gen
+        self.clock._cpu_on = self.gen % CPU_SAMPLE_EVERY == 0
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        c = self.clock
+        args = {"gen": self.gen, "search": c.searches}
+        if c._cpu_on:
+            args["cpu_ns"] = c._cpu - c._cpu0
+        c._cpu_on = False
+        c.tracer.complete(self.name, c._t0, c._t, cat="search", **args)
+        return False
 
 
 class make_eval_fn:  # named as the reference's factory, which it replaces
@@ -170,10 +260,11 @@ def init_state(
     parent instead of a random genome drawn from ``generator``."""
     clock = eval_fn.clock
     parent = init_genome(generator, spec) if seed_genome is None else seed_genome
-    clock.start()
-    # the reference evaluates its first parent op by op, outside its loop
-    ft, fv = eval_fn(_stack1(parent), in_loop=False)
-    clock.lap("host_select")
+    with clock.init_span():
+        clock.start()
+        # the reference evaluates its first parent op by op, outside its loop
+        ft, fv = eval_fn(_stack1(parent), in_loop=False)
+        clock.lap("host_select")
     zero = np.int32(0)
     return EvolveState(
         parent=parent, parent_fit=ft[0], best=parent, best_val=fv[0],
@@ -227,12 +318,13 @@ def generation_step(
     cfg: EvolveConfig, eval_fn: "make_eval_fn",
 ) -> EvolveState:
     clock = eval_fn.clock
-    clock.start()
-    children, u = draw_step(generator, state.parent, spec, cfg)
-    clock.lap("mutate")
-    ft, fv = eval_fn(children)  # (λ,), (λ,)
-    state = advance(state, children, ft, fv, u, cfg)
-    clock.lap("host_select")
+    with clock.generation_span(state.gen):
+        clock.start()
+        children, u = draw_step(generator, state.parent, spec, cfg)
+        clock.lap("mutate")
+        ft, fv = eval_fn(children)  # (λ,), (λ,)
+        state = advance(state, children, ft, fv, u, cfg)
+        clock.lap("host_select")
     return state
 
 

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.program import CircuitProgram
+from repro_torch.serve.observability.trace import active
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "circuit_eval.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -145,10 +146,14 @@ def build_library() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library, once per process."""
+    """Build (first use) and load the kernel library, once per process.
+    The load is a span ``kernels.load_library`` of the `active` recorder,
+    whose ``built`` says whether ``nvcc`` ran for it (`build_count`)."""
     global _lib
     with _lock:
         if _lib is None:
+            rec = active()
+            t0, builds = rec.clock(), _builds
             lib = ctypes.CDLL(str(build_library()))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.circuit_eval_program.argtypes = (
@@ -160,6 +165,8 @@ def load_library() -> ctypes.CDLL:
             lib.circuit_eval_error_string.argtypes = [i]
             lib.circuit_eval_error_string.restype = ctypes.c_char_p
             _lib = lib
+            rec.complete("kernels.load_library", t0, rec.clock(), cat="kernels",
+                         built=_builds > builds)
         return _lib
 
 

@@ -6,8 +6,9 @@ Three consumers, three formats, one timeline:
 
   * `export_chrome` — the Chrome trace-event JSON the Perfetto UI
     (https://ui.perfetto.dev) and ``chrome://tracing`` open directly.
-    Request-lifecycle async spans, per-tick phase spans, and
-    scheduler/autoscale instants all land on one zoomable timeline.
+    Request-lifecycle async spans, per-tick phase spans,
+    scheduler/autoscale instants and a fit's complete (``X``) spans all
+    land on one zoomable timeline.
   * `export_jsonl` — one JSON object per event line, for ad-hoc
     ``jq``/pandas analysis and structured log shipping.
   * `prometheus_text` — a text-format snapshot of the serving stack's
@@ -36,8 +37,10 @@ _PID = 1  # one serving process per trace
 def _event_list(src: "TraceRecorder | Iterable[TraceEvent]"):
     events = src.events() if isinstance(src, TraceRecorder) else list(src)
     # stable sort: appends from different threads may interleave slightly
-    # out of timestamp order in the ring
-    return sorted(events, key=lambda e: e.ts)
+    # out of timestamp order in the ring; an X span is appended when it
+    # ends, so of spans that start together the longer (the parent) goes
+    # first
+    return sorted(events, key=lambda e: (e.ts, -(e.dur or 0.0)))
 
 
 def _json_args(args: "dict | None") -> dict:
@@ -52,7 +55,7 @@ def to_chrome(src: "TraceRecorder | Iterable[TraceEvent]") -> dict:
     """Render a timeline as a Chrome trace-event document (pure)."""
     events = _event_list(src)
     origin = events[0].ts if events else 0.0
-    end_us = (events[-1].ts - origin) * 1e6 if events else 0.0
+    end_us = (max(e.ts + (e.dur or 0.0) for e in events) - origin) * 1e6 if events else 0.0
 
     tids: dict[str, int] = {}
     out: list[dict] = []
@@ -99,6 +102,11 @@ def to_chrome(src: "TraceRecorder | Iterable[TraceEvent]") -> dict:
             elif ev.phase == "e":
                 async_open[key] -= 1
             rec["id"] = format(ev.id, "x")
+            if args:
+                rec["args"] = args
+            out.append(rec)
+        elif ev.phase == "X":
+            rec["dur"] = (ev.dur or 0.0) * 1e6
             if args:
                 rec["args"] = args
             out.append(rec)
@@ -156,6 +164,7 @@ def export_jsonl(src: "TraceRecorder | Iterable[TraceEvent]",
                 "ts": ev.ts, "ph": ev.phase, "name": ev.name,
                 "cat": ev.cat, "track": ev.track,
                 **({"id": ev.id} if ev.id is not None else {}),
+                **({"dur": ev.dur} if ev.dur is not None else {}),
                 **({"args": _json_args(ev.args)} if ev.args else {}),
             }) + "\n")
     return len(events)

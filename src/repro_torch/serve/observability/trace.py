@@ -16,11 +16,22 @@ instants, counters, and cross-thread async spans — into one bounded ring.
     spans nest per *track* (one per thread by default).
 
 Event phases follow the Chrome trace-event vocabulary: ``B``/``E`` span
-begin/end, ``i`` instant, ``C`` counter, ``b``/``n``/``e`` async span.
+begin/end, ``X`` complete span (start and duration known when recorded),
+``i`` instant, ``C`` counter, ``b``/``n``/``e`` async span.
+
+The serving stack is handed its recorder (``tracer=``).  The fit and the
+encoding have no such argument: they record into the process's current
+recorder, `active`, which is `NULL_TRACER` unless a `recording` block is
+open::
+
+    with recording(TraceRecorder(capacity=1 << 20)) as rec:
+        clf.fit(x, y)
+    rec.export_chrome("fit.json")
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 import time
@@ -37,6 +48,10 @@ class TraceEvent(NamedTuple):
     track: str          # logical lane — exported as a thread id
     args: "dict | None"
     id: "int | None"    # async-span correlation id (b/n/e only)
+    dur: "float | None" = None  # seconds (X only)
+
+
+_new_tuple = tuple.__new__
 
 
 class _NoopSpan:
@@ -51,7 +66,9 @@ class _NoopSpan:
         return False
 
 
-_NOOP_SPAN = _NoopSpan()
+#: The one shared no-op context manager: what `TraceRecorder.span` (and
+#: `core.evolve.PhaseClock`'s spans) return while recording is off.
+NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
@@ -163,13 +180,30 @@ class TraceRecorder:
         matched B/E pair.  Disabled recorders return one shared no-op
         context manager: no allocation on the hot path."""
         if not self.enabled:
-            return _NOOP_SPAN
+            return NOOP_SPAN
         return _Span(self, name, cat, track, args)
 
     def instant(self, name: str, *, cat: str = "",
                 track: "str | None" = None, **args) -> None:
         """A point-in-time marker (scheduler fire, plan swap, ...)."""
         self._record("i", name, cat, track, args)
+
+    def complete(self, name: str, start: float, end: float, *, cat: str = "",
+                 track: "str | None" = None, **args) -> None:
+        """A span whose start and end (recorder clock) the caller has
+        already read: one ``X`` event, for a phase timed by its own clock
+        reads (`core.evolve.PhaseClock`)."""
+        if not self.enabled:
+            return
+        self._recorded += 1
+        # tuple.__new__ skips the NamedTuple's Python-level constructor: a
+        # fit records nine of these a generation
+        self._events.append(_new_tuple(TraceEvent, (
+            start, "X", name, cat,
+            track if track is not None
+            else threading.current_thread().name,
+            args or None, None, end - start,
+        )))
 
     def counter(self, name: str, value: float, *, cat: str = "",
                 track: "str | None" = None) -> None:
@@ -216,3 +250,26 @@ class TraceRecorder:
 #: single shared no-op object.  Never enable this instance (it is shared
 #: process-wide); construct a fresh `TraceRecorder` to actually trace.
 NULL_TRACER = TraceRecorder(capacity=1, enabled=False)
+
+_active = NULL_TRACER
+
+
+def active() -> TraceRecorder:
+    """The process's current recorder: `NULL_TRACER` outside a
+    `recording` block."""
+    return _active
+
+
+@contextlib.contextmanager
+def recording(rec: TraceRecorder):
+    """Make ``rec`` the process's current recorder (`active`) for the
+    block, and restore the previous one on exit, also when the block
+    raises.  Code that reads `active` while the block is open records into
+    ``rec``: the search's phases, encoding and packing, the kernel
+    library's load."""
+    global _active
+    prev, _active = _active, rec
+    try:
+        yield rec
+    finally:
+        _active = prev
