@@ -10,8 +10,9 @@ The loop runs on the host.  The packed data and both masks stay resident
 on the device they were packed to.  Each generation:
 
   1. mutate λ children on the host (`core/mutate.py`, a CPU generator);
-  2. compile them to live-gate programs (`kernels/program.py`) and copy
-     the programs to the device;
+  2. compile them to live-gate programs in one native pass
+     (`kernels/program.py`), the fn-set lookup included, into one host
+     buffer, and send its used prefix to the device in one copy;
   3. one ``eval_program`` launch of the backend over all W words;
   4. reduce to ``correct[2, λ, C]`` (train, val) on the device with
      `fitness.confusion_counts`, read them back, compute both
@@ -34,9 +35,9 @@ import torch
 from repro_torch import runtime
 from repro_torch.core import fitness as F
 from repro_torch.core.encoding import PackedDataset
-from repro_torch.core.genome import CircuitSpec, Genome, init_genome, opcodes
+from repro_torch.core.genome import CircuitSpec, Genome, init_genome
 from repro_torch.core.mutate import mutate_children
-from repro_torch.kernels.program import compile_program
+from repro_torch.kernels import program as PG
 from repro_torch.serve.observability.trace import NOOP_SPAN, NULL_TRACER, active
 
 # The phases of one generation that `PhaseClock` books, in loop order.
@@ -187,9 +188,16 @@ class make_eval_fn:  # named as the reference's factory, which it replaces
     pass over *all* packed rows; train and val fitness are two masked
     confusion reductions over the same circuit outputs.
 
-    A call compiles the genomes, makes one ``eval_program`` launch, reduces
-    its outputs under both masks to ``correct[2, λ, C]`` on the data's
-    device (`fitness.confusion_counts`, with the per-class row counts of
+    A call compiles the genomes into a host buffer it owns
+    (`program.PopulationCompiler`) and, where the data lies on a card, sends
+    the buffer's used prefix to a device buffer it owns in one
+    asynchronous copy from pinned memory; the program is views of that
+    buffer (`program.program_views`).  The next call waits for that copy
+    before it writes the host buffer again; the readback has waited for
+    the stream by then, so that wait (booked in ``compile``) never
+    blocks, and the copy's device time is waited for in ``readback``.  It
+    then makes one ``eval_program`` launch, reduces its outputs under both
+    masks to ``correct[2, λ, C]`` on the data's device (`fitness.confusion_counts`, with the per-class row counts of
     both masks counted once here by `fitness.class_counts`), reads them
     back and computes both fitnesses on the host.  ``backend=None`` is the
     backend of the data's device (the kernels on the card, the plain
@@ -216,14 +224,58 @@ class make_eval_fn:  # named as the reference's factory, which it replaces
         self._masks = torch.stack([mask_train, mask_val])[:, None]  # (2, 1, W)
         self._count = F.class_counts(data, self._masks)              # (2, 1, C)
         self._count_host = self._reduce(self._count.cpu().clone()).numpy()
+        self._fn_table = spec.fn_table()
+        self._compiler: "PG.PopulationCompiler | None" = None  # owns the host buffer
+        self._dev: "torch.Tensor | None" = None  # the device buffer (the host one on the CPU)
+        self._views: dict = {}  # (P, L, R) → `_program`'s views
+        self._copied = torch.cuda.Event() if data.device.type == "cuda" else None
+        PG.load_library()
+
+    def _buffers(self, genomes: Genome) -> PG.PopulationCompiler:
+        """The compiler, with program buffers that hold the largest
+        program of ``genomes``: made at the first call, and again only
+        for a larger population."""
+        (pop, n), n_out = genomes.gate_fn.shape, genomes.out_src.shape[-1]
+        compiler = self._compiler
+        if compiler is None or not compiler.fits(pop, n, n_out):
+            compiler = self._compiler = PG.PopulationCompiler(
+                pop, n, self.spec.n_inputs, n_out, self._fn_table,
+                pinned=self._copied is not None)
+            self._dev = compiler.buf if self._copied is None else torch.empty_like(
+                compiler.buf, device=self.data.device)
+            self._views.clear()
+        return compiler
+
+    def _program(self, pop: int, n_l: int, n_r: int) -> tuple:
+        """The program of these sizes as views of the device buffer, and
+        the device and host prefixes its copy takes: views, made once for
+        the compiler's O."""
+        key = (pop, n_l, n_r)
+        hit = self._views.get(key)
+        if hit is None:
+            # L and R change with the parent: the cap bounds the entries a
+            # long fit keeps, of the n × I pairs it could meet
+            if len(self._views) >= 256:
+                self._views.clear()
+            n_out = self._compiler.n_outputs
+            used = PG.used_words(pop, n_l, n_r, n_out)
+            hit = self._views[key] = (
+                PG.program_views(self._dev, pop, n_l, n_r, n_out, self.spec.n_inputs),
+                self._dev[:used], self._compiler.buf[:used])
+        return hit
 
     def __call__(self, genomes: Genome, *, in_loop: bool = True
                  ) -> tuple[np.ndarray, np.ndarray]:
         clock, data = self.clock, self.data
-        program = compile_program(opcodes(genomes, self.spec), genomes.edge_src,
-                                  genomes.out_src, self.spec.n_inputs)
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy out of the host buffer
+        compiler = self._buffers(genomes)
+        n_l, n_r = compiler(genomes.gate_fn, genomes.edge_src, genomes.out_src)
         clock.lap("compile")
-        program = program.to(data.device)
+        program, dev, host = self._program(genomes.out_src.shape[0], n_l, n_r)
+        if self._copied is not None:
+            dev.copy_(host, non_blocking=True)
+            self._copied.record(torch.accelerator.current_stream(data.device.index))
         clock.lap("program_h2d")
         out = self.backend.eval_program(program, data.x_words)  # (λ, O, W)
         clock.lap("launch")

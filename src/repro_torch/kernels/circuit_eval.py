@@ -26,26 +26,25 @@ calls only the launch half on every tick; `eval_program_spans` is the two
 in one call.
 
 The build goes to ``build/repro_torch/`` at the repository root, keyed by
-a hash of the source and flags, so an edited source rebuilds.
+a hash of the source and flags, so an edited source rebuilds
+(`kernels/native.py`).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import native
 from repro_torch.kernels.program import CircuitProgram
 from repro_torch.serve.observability.trace import active
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "circuit_eval.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -112,9 +111,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the built library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(repr(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"circuit_eval_{h.hexdigest()[:16]}.so"
+    return native.library_path(SOURCE, NVCC_FLAGS)
 
 
 def build_library() -> Path:
@@ -127,22 +124,7 @@ def build_library() -> Path:
     if so.exists():
         return so
     _builds += 1
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as err:
-        raise CudaKernelError(f"cannot run nvcc ({cmd[0]}): {err}") from err
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise CudaKernelError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
-            f"{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent build never sees a half file
-    return so
+    return native.build(so, _nvcc(), NVCC_FLAGS, SOURCE, CudaKernelError)
 
 
 def load_library() -> ctypes.CDLL:

@@ -7,7 +7,7 @@ its content, never on the traffic:
   * the kernel library, built once per source hash by ``nvcc``
     (`kernels/circuit_eval.py` `build_library`);
   * the shard's live-gate program (`kernels/program.py`
-    `compile_program`, host Python run per gate) and its upload;
+    `compile_program`, a host pass over the genome) and its upload;
   * the launch configuration: the program's checks, the SM count and the
     threads per CTA.
 

@@ -24,7 +24,8 @@ from repro_torch.core import api as A
 from repro_torch.core import encoding as E
 from repro_torch.core import evolve as V
 from repro_torch.core.genome import CircuitSpec
-from repro_torch.kernels import circuit_eval
+from repro_torch.kernels import circuit_eval, native
+from repro_torch.kernels import program as PG
 from repro_torch.serve.observability import (
     NULL_TRACER,
     TraceEvent,
@@ -46,6 +47,14 @@ class FakeClock:
     def __call__(self) -> float:
         self.t += self.step
         return self.t
+
+
+@pytest.fixture(autouse=True)
+def _program_library_loaded():
+    """The native program compiler loads once per process, at the first
+    `make_eval_fn`: load it before any recording here, so every test sees
+    only its own spans (its load span has a test of its own)."""
+    PG.load_library()
 
 
 def _problem(rows: int = 200, seed: int = 3):
@@ -266,6 +275,22 @@ def test_load_library_span_says_whether_nvcc_ran(monkeypatch, builds):
     (e,) = rec.events()
     assert (e.phase, e.name, e.cat, e.dur) == ("X", "kernels.load_library", "kernels", 0.125)
     assert e.args == {"built": bool(builds)}
+
+
+def test_program_library_span_says_whether_cxx_ran(monkeypatch, tmp_path):
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    for built in (True, False):
+        monkeypatch.setattr(PG, "_lib", None)
+        monkeypatch.setattr(PG, "_lib_loaded", False)
+        rec = TraceRecorder(clock=FakeClock())
+        with recording(rec):
+            lib = PG.load_library()
+            assert PG.load_library() is lib is not None   # loaded once: one span
+        (e,) = rec.events()
+        assert (e.phase, e.name, e.cat, e.dur) == (
+            "X", "kernels.load_program_library", "kernels", 0.125)
+        assert e.args == {"built": built}
+    assert PG.library_path().exists() and PG.library_path().parent == tmp_path
 
 
 @pytest.mark.cuda
